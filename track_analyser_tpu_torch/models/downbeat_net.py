@@ -1,0 +1,124 @@
+"""Downbeat activation network: the time-parallel TCN, as an ``nn.Module``.
+
+Counterpart of the JAX reference's ``models/downbeat_net.py`` serving
+path (``tcn_forward`` and ``_activation_graph``): an input projection,
+tanh, seven residual blocks (dilated conv over time, kernel 5, SAME
+padding, dilations 1..64, + bias -> GELU (tanh approximation, as
+``jax.nn.gelu``'s default) -> pointwise projection + bias -> residual
+add), and an output projection to 3 classes (none / beat / downbeat).
+The GRU variant is not ported: the fused path refuses it.
+
+Public layouts follow the JAX functions: features and logits are
+(T, channels); the module transposes around each ``conv1d``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "N_CLASSES",
+    "TCN_DILATIONS",
+    "TCN_KERNEL",
+    "DownbeatTCN",
+    "load_checkpoint",
+    "params_from_jax",
+    "activation_graph",
+]
+
+N_CLASSES = 3  # none / beat / downbeat
+TCN_DILATIONS = (1, 2, 4, 8, 16, 32, 64)
+TCN_KERNEL = 5
+_HOP = 512
+
+
+class DownbeatTCN(nn.Module):
+    """Per-frame class logits, fully time-parallel: (T, n_mels) -> (T, 3)."""
+
+    def __init__(self, *, n_mels: int = 128, channels: int = 64) -> None:
+        super().__init__()
+        self.inp = nn.Linear(n_mels, channels)
+        self.convs = nn.ModuleList(
+            nn.Conv1d(
+                channels, channels, TCN_KERNEL, dilation=d, padding=d * (TCN_KERNEL - 1) // 2
+            )
+            for d in TCN_DILATIONS
+        )
+        self.pointwise = nn.ModuleList(nn.Linear(channels, channels) for _ in TCN_DILATIONS)
+        self.out = nn.Linear(channels, N_CLASSES)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = torch.tanh(self.inp(feats))
+        for conv, pointwise in zip(self.convs, self.pointwise):
+            h = conv(x.T.unsqueeze(0))[0].T
+            h = F.gelu(h, approximate="tanh")
+            x = x + pointwise(h)
+        return self.out(x)
+
+
+def load_checkpoint(path) -> Dict[str, np.ndarray]:
+    """A checkpoint's parameters as numpy arrays (the JAX package's .npz
+    layout)."""
+
+    with np.load(path) as data:
+        return {k: np.asarray(data[k]) for k in data.files}
+
+
+def params_from_jax(params: Dict[str, np.ndarray]) -> DownbeatTCN:
+    """A ``DownbeatTCN`` carrying the JAX TCN parameters.
+
+    ``tcn_in_w`` (n_mels, C), ``tcn{i}_pw`` (C, C) and ``tcn_out_w``
+    (C, 3) are ``x @ W`` matrices, so ``nn.Linear`` takes their
+    transpose; ``tcn{i}_w`` (C_out, C_in, K) is already conv1d's layout.
+    """
+
+    if "tcn0_w" not in params:
+        raise NotImplementedError(
+            "only TCN checkpoints are ported; the GRU downbeat net is not"
+        )
+    n_mels, channels = params["tcn_in_w"].shape
+    model = DownbeatTCN(n_mels=n_mels, channels=channels)
+
+    def _t(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+    with torch.no_grad():
+        model.inp.weight.copy_(_t(params["tcn_in_w"]).T)
+        model.inp.bias.copy_(_t(params["tcn_in_b"]))
+        for i, (conv, pointwise) in enumerate(zip(model.convs, model.pointwise)):
+            conv.weight.copy_(_t(params[f"tcn{i}_w"]))
+            conv.bias.copy_(_t(params[f"tcn{i}_b"]))
+            pointwise.weight.copy_(_t(params[f"tcn{i}_pw"]).T)
+            pointwise.bias.copy_(_t(params[f"tcn{i}_pb"]))
+        model.out.weight.copy_(_t(params["tcn_out_w"]).T)
+        model.out.bias.copy_(_t(params["tcn_out_b"]))
+    return model.eval()
+
+
+def activation_graph(model: DownbeatTCN, y: torch.Tensor, n_valid: int, *, sr: int) -> torch.Tensor:
+    """Per-frame P(downbeat) over a bucket-padded mono signal.
+
+    Log-mel features standardised over the valid frames only, the TCN
+    over the padded frame axis, softmax column 2; padded frames are
+    zeroed in the output."""
+
+    from ..ops.mel import mel_filterbank, melspectrogram_from_power, power_to_db
+    from ..ops.stft import magnitude, n_frames
+
+    power = magnitude(y, 2048, _HOP, power=2.0)
+    mel_db = power_to_db(melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128)))
+    feats = mel_db.T  # (T, 128)
+    total = n_frames(y.shape[-1], _HOP)
+    fmask = torch.arange(total, device=y.device) < 1 + n_valid // _HOP
+    zero = torch.zeros((), dtype=feats.dtype, device=y.device)
+    denom = torch.clamp_min(fmask.sum(), 1) * feats.shape[1]
+    mu = torch.where(fmask[:, None], feats, zero).sum() / denom
+    var = torch.where(fmask[:, None], (feats - mu) ** 2, zero).sum() / denom
+    feats = (feats - mu) / (torch.sqrt(var) + 1e-6)
+    logits = model(feats)
+    return torch.where(fmask, torch.softmax(logits, dim=-1)[:, 2], zero)
