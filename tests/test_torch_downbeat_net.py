@@ -78,29 +78,37 @@ def test_load_checkpoint_matches_jax() -> None:
 
 
 def test_activation_graph_matches_jax_on_padded_signal() -> None:
+    """Two lanes of different valid lengths in one batch, each against
+    the JAX graph of that lane alone."""
+
     sr = 22_050
     rng = np.random.default_rng(2)
-    n_valid = 3 * sr + 123
-    y = np.zeros(4 * sr, dtype=np.float32)  # zero padding beyond n_valid
-    t = np.arange(n_valid) / sr
-    y[:n_valid] = 0.2 * np.sin(2 * np.pi * 180.0 * t) + 0.05 * rng.normal(size=n_valid)
-    for start in range(0, n_valid, sr // 2):
-        y[start : start + 400] += 0.7 * np.exp(-np.arange(400) / 80.0)
+    n_valids = (3 * sr + 123, 2 * sr + 4_567)
+    lanes = np.zeros((2, 4 * sr), dtype=np.float32)  # zero padding beyond n_valid
+    for lane, n_valid in zip(lanes, n_valids):
+        t = np.arange(n_valid) / sr
+        lane[:n_valid] = 0.2 * np.sin(2 * np.pi * 180.0 * t) + 0.05 * rng.normal(size=n_valid)
+        for start in range(0, n_valid, sr // 2):
+            lane[start : min(start + 400, n_valid)] += 0.7 * np.exp(-np.arange(min(400, n_valid - start)) / 80.0)
 
     params = t_net.load_checkpoint(CKPT)
-    ref = np.asarray(
-        j_net._activation_graph(
-            {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(y), jnp.asarray(n_valid), sr=sr
-        )
-    )
     with torch.no_grad():
         got = t_net.activation_graph(
-            t_net.params_from_jax(params), torch.from_numpy(y), n_valid, sr=sr
+            t_net.params_from_jax(params), torch.from_numpy(lanes), torch.tensor(n_valids), sr=sr
         ).numpy()
-    assert got.shape == ref.shape
-    f_valid = 1 + n_valid // 512
-    assert np.all(got[f_valid:] == 0.0)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    for b, n_valid in enumerate(n_valids):
+        ref = np.asarray(
+            j_net._activation_graph(
+                {k: jnp.asarray(v) for k, v in params.items()},
+                jnp.asarray(lanes[b]),
+                jnp.asarray(n_valid),
+                sr=sr,
+            )
+        )
+        assert got[b].shape == ref.shape
+        f_valid = 1 + n_valid // 512
+        assert np.all(got[b, f_valid:] == 0.0)
+        np.testing.assert_allclose(got[b], ref, rtol=0, atol=1e-5)
 
 
 def test_gru_checkpoint_is_refused() -> None:

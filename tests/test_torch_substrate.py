@@ -1,10 +1,13 @@
-"""The port's fused graph against the JAX package's, on the CPU.
+"""The port's batched fused graph against the JAX package's, on the CPU.
 
-Every output key of ``full_track_graph`` against
-``jitted_full_track_graph`` on the same bucket-padded stereo signal; the
-padding contract inside the port (a bucket-padded run equals an
-exact-shape run over the valid frames); and ``pack_outputs`` /
-``unpack_outputs`` against JAX's on the same graph outputs.
+Every output key of ``full_track_graph`` on a batch of two bucket-padded
+stereo lanes of different valid lengths, lane by lane against
+``jitted_full_track_graph`` of that lane alone, with both branches of
+the shared STFT's switch: ``ops/stft.magnitude`` (the default) and the
+fused |STFT| (``TA_PALLAS_STFT=1``, whose plain version runs on the
+CPU). Also the padding contract inside the port (a bucket-padded run
+equals an exact-shape run over the valid frames), and ``pack_outputs``
+/ ``unpack_outputs`` against JAX's on the same graph outputs.
 
 Per-key tolerances are relative to each key's largest magnitude
 (``scale``): the graph is float32 end to end, and XLA and PyTorch round
@@ -83,25 +86,53 @@ def _stereo(n: int) -> np.ndarray:
     return (0.9 * np.stack([left, right]) / 2.0).astype(np.float32)
 
 
+# The two lanes of the batch: the full fixture, and a shorter one that
+# shares its bucket (the reference's vmap over lanes of one bucket).
+N_VALID = (N, 4 * SR + 777)
+BRANCHES = ("cufft", "fused")
+
+
 @pytest.fixture(scope="module")
 def padded():
     stereo = _stereo(N)
-    buf = np.zeros((2, t_sub.bucket_length(N)), dtype=np.float32)
-    buf[:, :N] = stereo
+    buf = np.zeros((2, 2, t_sub.bucket_length(N)), dtype=np.float32)
+    for b, n in enumerate(N_VALID):
+        buf[b, :, :n] = stereo[:, :n]
     return buf
 
 
 @pytest.fixture(scope="module")
 def jax_out(padded):
-    out = j_sub.jitted_full_track_graph(jnp.asarray(padded), jnp.asarray(N), sr=SR)
-    return {k: np.asarray(v) for k, v in out.items()}
+    outs = []
+    for b, n in enumerate(N_VALID):
+        out = j_sub.jitted_full_track_graph(jnp.asarray(padded[b]), jnp.asarray(n), sr=SR)
+        outs.append({k: np.asarray(v) for k, v in out.items()})
+    return outs
+
+
+def _port_graph(padded: np.ndarray, n_valid, branch: str) -> dict:
+    with pytest.MonkeyPatch.context() as mp:
+        if branch == "fused":
+            mp.setenv("TA_PALLAS_STFT", "1")
+        else:
+            mp.delenv("TA_PALLAS_STFT", raising=False)
+        with torch.inference_mode():
+            out = t_sub.full_track_graph(
+                torch.from_numpy(padded), torch.tensor(n_valid), sr=SR
+            )
+    return {k: v.numpy() for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
-def port_out(padded):
-    with torch.inference_mode():
-        out = t_sub.full_track_graph(torch.from_numpy(padded), N, sr=SR)
-    return {k: v.numpy() for k, v in out.items()}
+def port_outs(padded):
+    return {branch: _port_graph(padded, N_VALID, branch) for branch in BRANCHES}
+
+
+@pytest.fixture(scope="module")
+def port_out(port_outs):
+    """Lane 0 of the default branch."""
+
+    return {k: v[0] for k, v in port_outs["cufft"].items()}
 
 
 def test_bucket_length_matches() -> None:
@@ -111,14 +142,16 @@ def test_bucket_length_matches() -> None:
 
 def test_output_keys_match(jax_out, port_out) -> None:
     # autocorr is not ported: the host recomputes it in float64
-    assert sorted(port_out) == sorted(set(jax_out) - {"autocorr"})
+    assert sorted(port_out) == sorted(set(jax_out[0]) - {"autocorr"})
     assert sorted(_TOLERANCES) == sorted(port_out)
 
 
+@pytest.mark.parametrize("branch", BRANCHES)
+@pytest.mark.parametrize("lane", range(len(N_VALID)))
 @pytest.mark.parametrize("key", sorted(_TOLERANCES))
-def test_graph_output_matches_jax(key, jax_out, port_out) -> None:
-    ref = jax_out[key].astype(np.float64)
-    got = port_out[key].astype(np.float64)
+def test_graph_output_matches_jax(key, lane, branch, jax_out, port_outs) -> None:
+    ref = jax_out[lane][key].astype(np.float64)
+    got = port_outs[branch][key][lane].astype(np.float64)
     assert got.shape == ref.shape, key
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, rtol=0, atol=_TOLERANCES[key] * scale, err_msg=key)
@@ -143,9 +176,9 @@ def test_padding_does_not_change_results(padded, port_out) -> None:
 
     with torch.inference_mode():
         exact = {
-            k: v.numpy()
+            k: v.numpy()[0]
             for k, v in t_sub.full_track_graph(
-                torch.from_numpy(np.ascontiguousarray(padded[:, :N])), N, sr=SR
+                torch.from_numpy(np.ascontiguousarray(padded[:1, :, :N])), torch.tensor([N]), sr=SR
             ).items()
         }
     f_valid = 1 + N // 512
@@ -175,25 +208,34 @@ def test_padding_does_not_change_results(padded, port_out) -> None:
         )
 
 
-def test_pack_and_unpack_match_jax(port_out) -> None:
+def test_pack_and_unpack_match_jax(port_outs) -> None:
     """The same graph outputs packed by both packages give the same bytes
-    (f16/bf16 rounding included), and unpack to the same arrays."""
+    (f16/bf16 rounding included), lane by lane, and unpack to the same
+    arrays."""
 
+    batch = port_outs["cufft"]
     with torch.inference_mode():
-        t_packed = [
-            p.numpy()
-            for p in t_sub.pack_outputs({k: torch.from_numpy(v) for k, v in port_out.items()})
+        t_packed = [p.numpy() for p in t_sub.pack_outputs({k: torch.from_numpy(v) for k, v in batch.items()})]
+    assert len(t_packed) == 4
+    for lane in range(len(N_VALID)):
+        j_packed = [
+            np.asarray(p)
+            for p in j_sub.pack_outputs({k: jnp.asarray(v[lane]) for k, v in batch.items()})
         ]
-    j_packed = [
-        np.asarray(p) for p in j_sub.pack_outputs({k: jnp.asarray(v) for k, v in port_out.items()})
-    ]
-    assert len(t_packed) == len(j_packed) == 4
-    for got, ref in zip(t_packed, j_packed):
-        assert got.shape == ref.shape
-        np.testing.assert_array_equal(got.view(ref.dtype), ref)
+        assert len(j_packed) == 4
+        for got, ref in zip(t_packed, j_packed):
+            assert got[lane].shape == ref.shape
+            np.testing.assert_array_equal(got[lane].view(ref.dtype), ref)
 
-    t_unpacked = t_sub.unpack_outputs(*t_packed)
-    j_unpacked = j_sub.unpack_outputs(*j_packed)
-    assert sorted(t_unpacked) == sorted(j_unpacked)
-    for key in j_unpacked:
-        np.testing.assert_array_equal(np.asarray(t_unpacked[key]), np.asarray(j_unpacked[key]), err_msg=key)
+        t_unpacked = t_sub.unpack_outputs(*(p[lane] for p in t_packed))
+        j_unpacked = j_sub.unpack_outputs(*j_packed)
+        assert sorted(t_unpacked) == sorted(j_unpacked)
+        for key in j_unpacked:
+            np.testing.assert_array_equal(
+                np.asarray(t_unpacked[key]), np.asarray(j_unpacked[key]), err_msg=key
+            )
+
+
+def test_graph_rejects_unbatched_stereo() -> None:
+    with pytest.raises(ValueError, match="B, 2, n"):
+        t_sub.full_track_graph(torch.zeros(2, 1 << 15), torch.tensor([100]), sr=SR)

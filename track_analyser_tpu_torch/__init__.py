@@ -1,11 +1,15 @@
 """track_analyser_tpu_torch: the audio track analyser in PyTorch + CUDA.
 
 A port of ``track_analyser_tpu`` (JAX on a TPU, kept beside it as the
-reference) to PyTorch on an NVIDIA H100. The first slice is the default
-path, ``analyse_track(path)``: the fused one-pass analysis of one track
-plus the host finishers, producing the same ``TrackAnalysisResult``.
-HPSS's two sliding medians run through a hand-written CUDA kernel
-(``csrc/median31.cu``); everything else is plain PyTorch.
+reference) to PyTorch on an NVIDIA H100. Ported so far: the default
+path, ``analyse_track(path)`` (the fused one-pass analysis of one track
+plus the host finishers, producing the same ``TrackAnalysisResult``),
+and the library sweep ``parallel.batch.analyse_library``, both through
+one fused graph with a leading batch axis, with the float32, int16, int8
+and "ms" transports. HPSS's two sliding medians run through a
+hand-written CUDA kernel (``csrc/median31.cu``), and the fused |STFT|
+through another (``csrc/stft_mag.cu``, when ``TA_PALLAS_STFT=1``);
+everything else is plain PyTorch.
 
 This package imports torch, numpy and scipy, never jax.
 """

@@ -38,7 +38,8 @@ _HOP = 512
 
 
 class DownbeatTCN(nn.Module):
-    """Per-frame class logits, fully time-parallel: (T, n_mels) -> (T, 3)."""
+    """Per-frame class logits, fully time-parallel: (T, n_mels) -> (T, 3),
+    or (B, T, n_mels) -> (B, T, 3) for a batch of lanes."""
 
     def __init__(self, *, n_mels: int = 128, channels: int = 64) -> None:
         super().__init__()
@@ -53,12 +54,14 @@ class DownbeatTCN(nn.Module):
         self.out = nn.Linear(channels, N_CLASSES)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        x = torch.tanh(self.inp(feats))
+        lanes = feats if feats.dim() == 3 else feats[None]
+        x = torch.tanh(self.inp(lanes))
         for conv, pointwise in zip(self.convs, self.pointwise):
-            h = conv(x.T.unsqueeze(0))[0].T
+            h = conv(x.transpose(1, 2)).transpose(1, 2)
             h = F.gelu(h, approximate="tanh")
             x = x + pointwise(h)
-        return self.out(x)
+        logits = self.out(x)
+        return logits if feats.dim() == 3 else logits[0]
 
 
 def load_checkpoint(path) -> Dict[str, np.ndarray]:
@@ -100,25 +103,30 @@ def params_from_jax(params: Dict[str, np.ndarray]) -> DownbeatTCN:
     return model.eval()
 
 
-def activation_graph(model: DownbeatTCN, y: torch.Tensor, n_valid: int, *, sr: int) -> torch.Tensor:
-    """Per-frame P(downbeat) over a bucket-padded mono signal.
+def activation_graph(
+    model: DownbeatTCN, y: torch.Tensor, n_valid: torch.Tensor, *, sr: int
+) -> torch.Tensor:
+    """Per-frame P(downbeat) (B, T) over bucket-padded mono lanes (B, n).
 
-    Log-mel features standardised over the valid frames only, the TCN
-    over the padded frame axis, softmax column 2; padded frames are
-    zeroed in the output."""
+    Log-mel features standardised over each lane's valid frames only
+    (``n_valid`` (B,)), the TCN over the padded frame axis, softmax
+    column 2; padded frames are zeroed in the output."""
 
     from ..ops.mel import mel_filterbank, melspectrogram_from_power, power_to_db
     from ..ops.stft import magnitude, n_frames
 
     power = magnitude(y, 2048, _HOP, power=2.0)
-    mel_db = power_to_db(melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128)))
-    feats = mel_db.T  # (T, 128)
+    mel_db = power_to_db(
+        melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128)), dims=(-2, -1)
+    )
+    feats = mel_db.transpose(-1, -2)  # (B, T, 128)
     total = n_frames(y.shape[-1], _HOP)
-    fmask = torch.arange(total, device=y.device) < 1 + n_valid // _HOP
+    n_valid = torch.as_tensor(n_valid, device=y.device)
+    fmask = torch.arange(total, device=y.device) < (1 + n_valid // _HOP)[:, None]  # (B, T)
     zero = torch.zeros((), dtype=feats.dtype, device=y.device)
-    denom = torch.clamp_min(fmask.sum(), 1) * feats.shape[1]
-    mu = torch.where(fmask[:, None], feats, zero).sum() / denom
-    var = torch.where(fmask[:, None], (feats - mu) ** 2, zero).sum() / denom
-    feats = (feats - mu) / (torch.sqrt(var) + 1e-6)
+    denom = torch.clamp_min(fmask.sum(dim=-1), 1) * feats.shape[-1]
+    mu = torch.where(fmask[..., None], feats, zero).sum(dim=(-2, -1)) / denom
+    var = torch.where(fmask[..., None], (feats - mu[:, None, None]) ** 2, zero).sum(dim=(-2, -1)) / denom
+    feats = (feats - mu[:, None, None]) / (torch.sqrt(var) + 1e-6)[:, None, None]
     logits = model(feats)
-    return torch.where(fmask, torch.softmax(logits, dim=-1)[:, 2], zero)
+    return torch.where(fmask, torch.softmax(logits, dim=-1)[..., 2], zero)

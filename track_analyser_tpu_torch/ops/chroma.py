@@ -222,7 +222,7 @@ def cq_chroma_tribank(
     n_octaves: int = 7,
     keep_hz: float = 1_050.0,
 ) -> torch.Tensor:
-    """Three-resolution CQ chroma (12, 1 + n//hop).
+    """Three-resolution CQ chroma (..., 12, 1 + n//hop) of ``y`` (..., n).
 
     One ``decim``-fold decimation feeds two STFTs (``low_n_fft`` for the
     bass octaves, ``mid_n_fft`` for the mid octaves); the top octaves
@@ -251,24 +251,24 @@ def cq_chroma_tribank(
     hop_low = hop // decim
     mag_low = magnitude(y_low, low_n_fft, hop_low, power=1.0)
     mag_mid = magnitude(y_low, mid_n_fft, hop_low, power=1.0)
-    raw_fam = (torch.as_tensor(fb_fam, device=dev) @ family_mag)[:, :: hop // family_hop]
+    raw_fam = (torch.as_tensor(fb_fam, device=dev) @ family_mag)[..., :: hop // family_hop]
     t = min(mag_low.shape[-1], mag_mid.shape[-1], raw_fam.shape[-1])
     raw = (
-        torch.as_tensor(fb_low, device=dev) @ mag_low[:, :t]
-        + torch.as_tensor(fb_mid, device=dev) @ mag_mid[:, :t]
-        + raw_fam[:, :t]
+        torch.as_tensor(fb_low, device=dev) @ mag_low[..., :t]
+        + torch.as_tensor(fb_mid, device=dev) @ mag_mid[..., :t]
+        + raw_fam[..., :t]
     )
-    return normalize_inf(raw, axis=0)
+    return normalize_inf(raw, axis=-2)
 
 
 def chroma_from_power(power_spec: torch.Tensor, fb: np.ndarray) -> torch.Tensor:
-    """Project a power spectrogram through a chroma filterbank and
-    inf-normalise each frame (librosa chroma convention)."""
+    """Project a power spectrogram (..., bins, frames) through a chroma
+    filterbank and inf-normalise each frame (librosa chroma convention)."""
 
     raw = torch.as_tensor(fb, device=power_spec.device) @ power_spec
-    return normalize_inf(raw, axis=0)
+    return normalize_inf(raw, axis=-2)
 
 
-def normalize_inf(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def normalize_inf(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
     scale = torch.amax(torch.abs(x), dim=axis, keepdim=True)
     return x / torch.where(scale > 0, scale, torch.ones_like(scale))

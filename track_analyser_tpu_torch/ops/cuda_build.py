@@ -1,0 +1,89 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/torch_kernels/`` (named by a hash of the source, so an edited
+source builds anew) and loaded with ``ctypes``. Nothing here runs at
+import time; a host without ``nvcc`` raises when a kernel is first
+needed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+__all__ = ["CSRC", "SOURCES", "nvcc", "build", "build_all", "load"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SOURCES = ("median31.cu", "stft_mag.cu")
+_loaded: dict = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+
+
+def build(source: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` unless a library of this exact source
+    already exists. Returns (library path, compiler log; "" if cached)."""
+
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [
+        nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {source} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, proc.stdout + proc.stderr
+
+
+def build_all(sources: "tuple[str, ...]" = SOURCES) -> "dict[str, tuple[Path, str]]":
+    """Build every source in ``sources`` at once, one ``nvcc`` process
+    each, all started together. Returns {source: (library path, log)};
+    raises if any build fails."""
+
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        futures = {source: pool.submit(build, source) for source in sources}
+        return {source: future.result() for source, future in futures.items()}
+
+
+def load(source: str, symbol: str, argtypes: list) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>``, with ``symbol`` bound to
+    ``argtypes`` and an int return (the kernel's cudaGetLastError)."""
+
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib_path, _log = build(source)
+            lib = ctypes.CDLL(str(lib_path))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[source] = lib
+    return lib

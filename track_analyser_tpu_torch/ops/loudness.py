@@ -114,10 +114,10 @@ def k_weighted(y: torch.Tensor, fs: int) -> torch.Tensor:
 def framed_energy(
     y: torch.Tensor, frame_length: int, hop_length: int, *, center: bool
 ) -> torch.Tensor:
-    """Per-frame energy sum(y[frame]^2) of a 1-D signal without
-    materialising the framed tensor when frame_length is a multiple of
-    hop_length: per-hop-chunk energy partials, then a k-term sum per
-    frame."""
+    """Per-frame energy sum(y[frame]^2) of ``y`` (..., n) along its last
+    axis, without materialising the framed tensor when frame_length is a
+    multiple of hop_length: per-hop-chunk energy partials, then a k-term
+    sum per frame."""
 
     n = y.shape[-1]
     k = frame_length // hop_length
@@ -128,11 +128,11 @@ def framed_energy(
     total = 1 + n // hop_length if center else 1 + (n - frame_length) // hop_length
     need = total - 1 + k
     tail = need * hop_length - (pad + n)
-    yp = F.pad(y, (pad, max(tail, 0)))[: need * hop_length]
-    part = torch.square(yp.reshape(need, hop_length)).sum(dim=-1)
-    out = part[0:total]
+    yp = F.pad(y, (pad, max(tail, 0)))[..., : need * hop_length]
+    part = torch.square(yp.reshape(y.shape[:-1] + (need, hop_length))).sum(dim=-1)
+    out = part[..., 0:total]
     for j in range(1, k):
-        out = out + part[j : j + total]
+        out = out + part[..., j : j + total]
     return out
 
 
@@ -144,13 +144,14 @@ def integrated_lufs(
     overlap: float = 0.75,
     absolute_gate: float = -70.0,
     relative_gate_lu: float = -10.0,
-    n_valid: "int | None" = None,
+    n_valid: "int | torch.Tensor | None" = None,
 ) -> torch.Tensor:
-    """Gated integrated loudness of a mono signal (BS.1770-4).
+    """Gated integrated loudness (BS.1770-4) of ``y`` (..., n), one value
+    per lane.
 
-    ``n_valid`` marks the true sample count of a bucket-padded signal:
-    blocks that extend past it are excluded, which reproduces the
-    exact-shape result."""
+    ``n_valid`` marks the true sample count of a bucket-padded signal (an
+    int, or a tensor of the lanes' batch shape): blocks that extend past
+    it are excluded, which reproduces the exact-shape result."""
 
     yk = k_weighted(y, fs)
     frame_len = int(round(block_seconds * fs))
@@ -159,33 +160,33 @@ def integrated_lufs(
     if yk.shape[-1] < frame_len:
         # Too short to gate: fall back to whole-signal energy.
         z = torch.mean(yk * yk, dim=-1, keepdim=True)
-        block_ok = torch.ones(1, dtype=torch.bool, device=dev)
+        block_ok = torch.ones(z.shape, dtype=torch.bool, device=dev)
     else:
         z = framed_energy(yk, frame_len, hop, center=False) / frame_len
         if n_valid is not None:
-            starts = torch.arange(z.shape[0], device=dev) * hop
-            block_ok = (starts + frame_len) <= n_valid
+            starts = torch.arange(z.shape[-1], device=dev) * hop
+            block_ok = (starts + frame_len) <= torch.as_tensor(n_valid, device=dev)[..., None]
         else:
-            block_ok = torch.ones(z.shape[0], dtype=torch.bool, device=dev)
+            block_ok = torch.ones(z.shape, dtype=torch.bool, device=dev)
 
     eps = 1e-20
     zero = torch.zeros((), dtype=z.dtype, device=dev)
     loud = -0.691 + 10.0 * torch.log10(z + eps)
 
     abs_mask = block_ok & (loud > absolute_gate)
-    abs_count = torch.clamp_min(abs_mask.sum(), 1)
-    z_abs = torch.where(abs_mask, z, zero).sum() / abs_count
+    abs_count = torch.clamp_min(abs_mask.sum(dim=-1), 1)
+    z_abs = torch.where(abs_mask, z, zero).sum(dim=-1) / abs_count
     gamma_r = -0.691 + 10.0 * torch.log10(z_abs + eps) + relative_gate_lu
 
-    both_mask = abs_mask & (loud > gamma_r)
-    count = torch.clamp_min(both_mask.sum(), 1)
-    z_gated = torch.where(both_mask, z, zero).sum() / count
+    both_mask = abs_mask & (loud > gamma_r[..., None])
+    count = torch.clamp_min(both_mask.sum(dim=-1), 1)
+    z_gated = torch.where(both_mask, z, zero).sum(dim=-1) / count
     return -0.691 + 10.0 * torch.log10(z_gated + eps)
 
 
 def rms_db_curve(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
-    """Sliding-window RMS in dB (centred frames, amplitude_to_db with an
-    80 dB floor)."""
+    """Sliding-window RMS in dB of ``y`` (..., n) (centred frames,
+    amplitude_to_db with an 80 dB floor below each lane's own peak)."""
 
     rms = torch.sqrt(framed_energy(y, frame_length, hop_length, center=True) / frame_length)
-    return amplitude_to_db(rms + 1e-9, ref=1.0, top_db=80.0)
+    return amplitude_to_db(rms + 1e-9, ref=1.0, top_db=80.0, dims=(-1,))

@@ -19,31 +19,23 @@ network lives in registers.
 There is no fallback from one to the other: a CUDA tensor gets the
 kernel or an exception.
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-plain-C shared library under ``build/torch_kernels/`` (keyed by a hash
-of the source) and bound with ``ctypes``.
+The kernel is compiled at first use by ``cuda_build`` (``nvcc``,
+``sm_90a``, a plain-C shared library under ``build/torch_kernels/``)
+and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .filters import median_filter_1d
 
-__all__ = ["median31", "median31_reference", "build"]
+__all__ = ["median31", "median31_reference"]
 
 _SIZE = 31
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "median31.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-_lib = None
 
 
 def median31_reference(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -53,49 +45,15 @@ def median31_reference(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return median_filter_1d(x, _SIZE, axis)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the median31 CUDA kernel cannot be built")
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/median31.cu`` unless a library of this source
-    already exists. Returns (library path, compiler log; "" if cached)."""
-
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libmedian31_{digest}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
-
-
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib_path, _log = build()
-        lib = ctypes.CDLL(str(lib_path))
-        lib.median31_launch.argtypes = [
+    return cuda_build.load(
+        "median31.cu",
+        "median31_launch",
+        [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.median31_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        ],
+    )
 
 
 def median31(x: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -93,31 +93,43 @@ def power_to_db(
     ref: float = 1.0,
     amin: float = 1e-10,
     top_db: float | None = 80.0,
+    dims: "tuple[int, ...] | None" = None,
 ) -> torch.Tensor:
-    """10*log10(S/ref) with floor clipping (librosa convention)."""
+    """10*log10(S/ref) with floor clipping (librosa convention).
+
+    The ``top_db`` floor sits below the maximum over ``dims`` (every axis
+    when None); a batch of lanes passes its per-lane axes, e.g. (-2, -1)
+    for (B, bands, frames), so that each lane keeps its own floor."""
 
     log_spec = 10.0 * torch.log10(torch.clamp_min(s, amin))
     ref_t = torch.tensor(max(amin, ref), dtype=s.dtype, device=s.device)
     log_spec = log_spec - 10.0 * torch.log10(ref_t)
     if top_db is not None:
-        log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
+        peak = log_spec.max() if dims is None else torch.amax(log_spec, dim=dims, keepdim=True)
+        log_spec = torch.maximum(log_spec, peak - top_db)
     return log_spec
 
 
 def amplitude_to_db(
-    s: torch.Tensor, *, ref: float = 1.0, amin: float = 1e-5, top_db: float | None = None
+    s: torch.Tensor,
+    *,
+    ref: float = 1.0,
+    amin: float = 1e-5,
+    top_db: float | None = None,
+    dims: "tuple[int, ...] | None" = None,
 ) -> torch.Tensor:
-    return power_to_db(s**2, ref=ref**2, amin=amin**2, top_db=top_db)
+    return power_to_db(s**2, ref=ref**2, amin=amin**2, top_db=top_db, dims=dims)
 
 
 def melspectrogram_from_power(power_spec: torch.Tensor, fb: np.ndarray) -> torch.Tensor:
-    """Project a power spectrogram (freq, time) through the mel filterbank."""
+    """Project a power spectrogram (..., freq, time) through the mel
+    filterbank."""
 
     return torch.as_tensor(fb, device=power_spec.device) @ power_spec
 
 
 def mfcc_from_log_mel(log_mel: torch.Tensor, n_mfcc: int = 13) -> torch.Tensor:
-    """MFCCs via an orthonormal DCT-II matmul; input (n_mels, time)."""
+    """MFCCs via an orthonormal DCT-II matmul; input (..., n_mels, time)."""
 
-    mat = torch.as_tensor(dct_matrix(n_mfcc, log_mel.shape[0]), device=log_mel.device)
+    mat = torch.as_tensor(dct_matrix(n_mfcc, log_mel.shape[-2]), device=log_mel.device)
     return mat @ log_mel

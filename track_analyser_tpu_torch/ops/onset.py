@@ -25,13 +25,14 @@ def onset_strength_from_mel(
     lag: int = 1,
     center: bool = True,
 ) -> torch.Tensor:
-    """Onset envelope from a mel POWER spectrogram (n_mels, n_frames)."""
+    """Onset envelope from a mel POWER spectrogram (..., n_mels, n_frames);
+    the dB floor is per (n_mels, n_frames) lane."""
 
-    s_db = power_to_db(mel_power)
-    flux = torch.clamp_min(s_db[:, lag:] - s_db[:, :-lag], 0.0)
-    env = flux.mean(dim=0)
+    s_db = power_to_db(mel_power, dims=(-2, -1))
+    flux = torch.clamp_min(s_db[..., lag:] - s_db[..., :-lag], 0.0)
+    env = flux.mean(dim=-2)
     pad_width = lag + (n_fft // (2 * hop_length) if center else 0)
     env = F.pad(env, (pad_width, 0))
     if center:
-        env = env[: mel_power.shape[-1]]
+        env = env[..., : mel_power.shape[-1]]
     return env

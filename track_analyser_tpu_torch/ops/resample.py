@@ -72,7 +72,8 @@ def _decimation_toeplitz(sr: int, decim: int, keep_hz: float, lanes: int) -> np.
 
 
 def decimate_fir(y: torch.Tensor, decim: int, *, sr: int, keep_hz: float) -> torch.Tensor:
-    """Anti-aliased ``decim``-fold decimation of a 1-D signal.
+    """Anti-aliased ``decim``-fold decimation of ``y`` (..., n) along its
+    last axis.
 
     out[k] is centred on y[k*decim] (odd symmetric kernel, zero padding
     beyond both ends), so STFT frame grids of the decimated signal align
@@ -94,9 +95,9 @@ def decimate_fir(y: torch.Tensor, decim: int, *, sr: int, keep_hz: float) -> tor
     # ypad carries one leading block of zeros (kernel centre offset).
     pad_tail = (n_blocks - 1) * hop_block + length - hop_block - n
     ypad = F.pad(y, (hop_block, pad_tail))
-    frames = frame_signal(ypad, length, hop_block, center=False)[:n_blocks]
+    frames = frame_signal(ypad, length, hop_block, center=False)[..., :n_blocks, :]
     out = frames @ mat
-    return out.reshape(-1)[:m_out]
+    return out.reshape(y.shape[:-1] + (-1,))[..., :m_out]
 
 
 def resample_poly_host(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
@@ -144,7 +145,8 @@ def true_peak_oversample_matrix(up: int) -> np.ndarray:
 
 
 def oversampled_peak(x: torch.Tensor, up: int = 8) -> torch.Tensor:
-    """max |polyphase-upsampled x| of a 1-D signal.
+    """max |polyphase-upsampled x| of ``x`` (..., n) along its last axis,
+    one peak per lane.
 
     y[up*n + p] = sum_q x[n + shift - q] * h[up*q + p]: the reversed
     windows are an ``unfold`` of the padded signal read against H with
@@ -156,4 +158,4 @@ def oversampled_peak(x: torch.Tensor, up: int = 8) -> torch.Tensor:
     xp = F.pad(x, (n_rows - 1 - shift, shift))
     windows = xp.unfold(-1, n_rows, 1)  # windows[n, j] = xp[n + j]
     y = torch.abs(windows @ torch.flip(hmat, dims=(0,)))
-    return y.max()
+    return torch.amax(y, dim=(-2, -1))

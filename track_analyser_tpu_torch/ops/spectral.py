@@ -33,7 +33,7 @@ def balance_band_weights(
 
 
 def spectral_centroid(mag: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
-    """Magnitude-weighted mean frequency per frame. Input (freq, time)."""
+    """Magnitude-weighted mean frequency per frame. Input (..., freq, time)."""
 
     f = torch.as_tensor(freqs, dtype=torch.float32, device=mag.device)[:, None]
     total = mag.sum(dim=-2, keepdim=True)
@@ -48,7 +48,7 @@ def spectral_rolloff(
 
     f = torch.as_tensor(freqs, dtype=torch.float32, device=mag.device)[:, None]
     total = torch.cumsum(mag, dim=-2)
-    threshold = roll_percent * total[-1:, :]
+    threshold = roll_percent * total[..., -1:, :]
     passed = total >= threshold
     candidate = torch.where(passed, f, torch.full_like(f, float("inf")))
     out = candidate.min(dim=-2).values

@@ -55,7 +55,9 @@ def analyse_track(
 
     ``device`` defaults to "cuda" and raises if CUDA is absent; "cpu"
     runs the plain PyTorch path. ``transport``: see
-    ``parallel.batch.analyse_track_fused`` ("auto" is "float32" here).
+    ``parallel.batch.analyse_track_fused``; "auto" means "ms" (the mid
+    channel as blockwise int8, with host-exact stereo values), as in the
+    JAX package.
 
     Not ported yet, and raising NotImplementedError: ``output_dir``
     (artefact rendering), ``use_stems=True`` and ``fused=False`` (the

@@ -1,14 +1,17 @@
 """Where a warm single-track analysis spends its time on a CUDA card.
 
-    python -m track_analyser_tpu_torch.profile_track [--seconds 181] [--reps 5]
+    python -m track_analyser_tpu_torch.profile_track [--seconds 181] [--reps 5] [--batch 1]
 
 Synthesises bench.py's club-track recipe (118 BPM, seed 0) in memory,
-warms the path up, then times each layer of ``analyse_track_fused`` with
+warms the path up, then times each layer of the float32 fused path with
 the host clock around synchronised steps (median of ``--reps``): pad,
-upload, fused graph (device), readback, unpack, host finishers. One more
-fused-graph run under ``torch.profiler`` gives the device time by kernel
-and the device's busy share of that run. Prints the card's name and
-power limit beside the numbers. Needs a CUDA card.
+upload, fused graph (device), readback, unpack, host finishers. The
+graph runs on ``--batch`` copies of the track as one batch (the sweep's
+``device_batch``); pad, upload and readback move the whole batch, and the
+finishers run on one lane. One more fused-graph run under
+``torch.profiler`` gives the device time by kernel and the device's busy
+share of that run. Prints the card's name and power limit beside the
+numbers. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -55,28 +58,37 @@ def _make_track(seconds: float, sr: int = 44_100, bpm: float = 118.0, seed: int 
     return (np.stack([left, right]) / peak * 0.9).astype(np.float32)
 
 
-def _stages(audio: AudioInput, dev: torch.device) -> dict:
-    """One warm pass of analyse_track_fused, timed layer by layer (ms)."""
+def _padded_batch(audio: AudioInput, lanes: int) -> tuple[np.ndarray, np.ndarray]:
+    """(lanes, 2, bucket) float32 copies of the track and their n_valid."""
+
+    stereo_np, n_valid = batch._pad_track(audio, bucket_length(len(audio.samples)))
+    return np.repeat(stereo_np[None], lanes, axis=0), np.full(lanes, n_valid, dtype=np.int64)
+
+
+def _stages(audio: AudioInput, dev: torch.device, lanes: int) -> dict:
+    """One warm pass of the float32 fused path on ``lanes`` copies of the
+    track, timed layer by layer (ms)."""
 
     ms = {}
     t0 = time.perf_counter()
-    stereo_np, n_valid = batch._pad_track(audio, bucket_length(len(audio.samples)))
+    stereo_np, n_valid = _padded_batch(audio, lanes)
     ms["pad"] = time.perf_counter() - t0
     with torch.inference_mode():
         t0 = time.perf_counter()
         stereo = torch.from_numpy(stereo_np).to(dev)
+        valid = torch.from_numpy(n_valid).to(dev)
         torch.cuda.synchronize()
         ms["upload"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        outs = batch._core_graph(stereo, n_valid, sr=audio.sample_rate)
+        outs = batch._core_graph(stereo, valid, sr=audio.sample_rate)
         torch.cuda.synchronize()
         ms["fused_graph"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         fetched = [o.cpu().numpy() for o in outs]
         ms["readback"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = unpack_outputs(*fetched[:4])
-    out["net_prob"] = fetched[4] if len(fetched) > 4 else None
+    out = unpack_outputs(*(f[0] for f in fetched[:4]))
+    out["net_prob"] = fetched[4][0] if len(fetched) > 4 else None
     ms["unpack"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     batch.result_from_graph_outputs(audio, out)
@@ -88,6 +100,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=181.0)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=1, help="lanes per graph run")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -97,9 +110,9 @@ def main() -> None:
     ).stdout.strip()
     x = _make_track(args.seconds)
     audio = AudioInput(samples=x.mean(axis=0), sample_rate=44_100, stereo_samples=x)
-    _stages(audio, dev)  # warm-up: cuFFT plans, handles, allocator
-    runs = [_stages(audio, dev) for _ in range(args.reps)]
-    print(f"layer times, warm, median of {args.reps} (ms) -- {card}")
+    _stages(audio, dev, args.batch)  # warm-up: cuFFT plans, handles, allocator
+    runs = [_stages(audio, dev, args.batch) for _ in range(args.reps)]
+    print(f"layer times, warm, batch {args.batch}, median of {args.reps} (ms) -- {card}")
     total = 0.0
     for key in runs[0]:
         values = sorted(r[key] for r in runs)
@@ -107,14 +120,15 @@ def main() -> None:
         print(f"  {key:12s} median {statistics.median(values):9.3f}  min {values[0]:9.3f}  max {values[-1]:9.3f}")
     print(f"  {'sum':12s} {total:9.3f}")
 
-    stereo_np, n_valid = batch._pad_track(audio, bucket_length(len(audio.samples)))
+    stereo_np, n_valid = _padded_batch(audio, args.batch)
     with torch.inference_mode():
         stereo = torch.from_numpy(stereo_np).to(dev)
+        valid = torch.from_numpy(n_valid).to(dev)
         torch.cuda.synchronize()
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            batch._core_graph(stereo, n_valid, sr=audio.sample_rate)
+            batch._core_graph(stereo, valid, sr=audio.sample_rate)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [
@@ -123,7 +137,7 @@ def main() -> None:
     ]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     print(
-        f"fused graph under the profiler: wall {wall_ms:.3f} ms, {len(kernels)} device "
+        f"fused graph (batch {args.batch}) under the profiler: wall {wall_ms:.3f} ms, {len(kernels)} device "
         f"kernels/copies, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall) -- {card}"
     )
     by_name: dict = {}

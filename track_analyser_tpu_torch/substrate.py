@@ -1,11 +1,14 @@
-"""The fused analysis substrate: the whole device-side analysis of a track.
+"""The fused analysis substrate: the whole device-side analysis of a
+batch of tracks.
 
 Every spectrogram family, HPSS, novelty, chroma, key scores, loudness,
 true peak, LTAS/centroid/rolloff and stereo widths are computed in one
-function on the tensors of one device; the host finishers afterwards
-only run the small greedy/label logic on kB-sized curves. Counterpart of
-the JAX reference's ``substrate.py``, output for output, except
-``autocorr`` (the host recomputes it in float64 from ``onset_env``).
+function on the tensors of one device, for B lanes at once (the
+reference's ``vmap`` over lanes, written out as a leading batch axis);
+the host finishers afterwards only run the small greedy/label logic on
+kB-sized curves. Counterpart of the JAX reference's ``substrate.py``,
+output for output, except ``autocorr`` (the host recomputes it in
+float64 from ``onset_env``).
 
 Padding contract: tracks are padded with zeros to a bucket length;
 ``n_valid`` masks every global reduction (loudness gating, key chroma
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import DEFAULT_CONFIG
+from .ops import fused_stft
 from .ops.chroma import chroma_from_power, chroma_stft_filterbank, cq_chroma_tribank
 from .ops.filters import gaussian_filter1d, gaussian_kernel, hpss
 from .ops.loudness import integrated_lufs, rms_db_curve
@@ -51,42 +55,43 @@ def bucket_length(n: int, *, hop: int = 512, min_bucket: int = 1 << 15) -> int:
     return int(np.ceil(candidate / quantum)) * quantum
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim) -> torch.Tensor:
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    if dim is None:
-        num = torch.where(mask, x, zero).sum()
-        den = torch.clamp_min(mask.sum(), 1)
-    else:
-        num = torch.where(mask, x, zero).sum(dim=dim)
-        den = torch.clamp_min(mask.expand_as(x).sum(dim=dim), 1)
+    num = torch.where(mask, x, zero).sum(dim=dim)
+    den = torch.clamp_min(mask.expand_as(x).sum(dim=dim), 1)
     return num / den
 
 
-def _smooth_valid(curve: torch.Tensor, f_valid: int, sigma: float) -> torch.Tensor:
-    """Gaussian-smooth a framewise curve as if it ended at ``f_valid``.
+def _smooth_valid(curve: torch.Tensor, f_valid: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian-smooth framewise curves (B, ..., T) as if lane b ended at
+    ``f_valid[b]``.
 
-    Every position at or beyond ``f_valid`` reads its mirror across the
-    last valid frame, and the array is extended by the kernel radius, so
-    the result over [0, f_valid) equals the exact-shape reflect-boundary
-    smoothing for any padding length. Values at padded positions are
-    meaningless; callers mask them."""
+    Every position at or beyond a lane's ``f_valid`` reads its mirror
+    across the last valid frame, and the array is extended by the kernel
+    radius, so the result over [0, f_valid) equals the exact-shape
+    reflect-boundary smoothing for any padding length. Values at padded
+    positions are meaningless; callers mask them."""
 
     radius = int(gaussian_kernel(float(sigma)).shape[0] // 2)
     total = curve.shape[-1]
     ext_idx = torch.arange(total + radius, device=curve.device)
+    fv = f_valid[:, None]
     idx = torch.where(
-        ext_idx < f_valid,
+        ext_idx < fv,
         torch.clamp_max(ext_idx, total - 1),
-        torch.clamp(2 * f_valid - 2 - ext_idx, 0, total - 1),
-    )
-    ext = curve.index_select(-1, idx)
+        torch.clamp(2 * fv - 2 - ext_idx, 0, total - 1),
+    )  # (B, T + radius): the per-lane mirror
+    idx = idx.view((idx.shape[0],) + (1,) * (curve.dim() - 2) + (idx.shape[1],))
+    ext = torch.gather(curve, -1, idx.expand(curve.shape[:-1] + (idx.shape[-1],)))
     return gaussian_filter1d(ext, sigma=sigma)[..., :total]
 
 
 def _minmax_normalise(curve: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Min-max normalise each lane of (B, T) over its masked frames."""
+
     big = torch.tensor(3.4e38, dtype=curve.dtype, device=curve.device)
-    lo = torch.where(mask, curve, big).min()
-    hi = torch.where(mask, curve, -big).max()
+    lo = torch.where(mask, curve, big).amin(dim=-1, keepdim=True)
+    hi = torch.where(mask, curve, -big).amax(dim=-1, keepdim=True)
     span = hi - lo
     flat = span < 1e-9
     out = torch.where(
@@ -102,37 +107,62 @@ def _rms_params(sr: int, seconds: float) -> tuple[int, int]:
     return fl, max(1, fl // 2)
 
 
-def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str, torch.Tensor]:
-    """Complete device-side analysis of one (padded) track.
+def _ms_magnitude(ms: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """|STFT| (B, 2, bins, frames) of the [mid, side] stack (B, 2, n).
+
+    With ``TA_PALLAS_STFT=1`` in the environment (``fused_stft.switched_on``)
+    the (2B, n) stack goes through the fused kernel ``ops/fused_stft`` (on
+    a CPU tensor, its plain version), as the reference routes it through
+    its Pallas kernel; otherwise through ``ops/stft.magnitude`` (cuFFT on
+    the card), the reference's default."""
+
+    if fused_stft.switched_on():
+        b, c, n = ms.shape
+        out = fused_stft.stft_magnitude(ms.reshape(b * c, n), n_fft, hop)
+        return out.view((b, c) + out.shape[1:])
+    return magnitude(ms, n_fft, hop, power=1.0)
+
+
+def full_track_graph(
+    stereo: torch.Tensor, n_valid: torch.Tensor, *, sr: int
+) -> Dict[str, torch.Tensor]:
+    """Complete device-side analysis of a batch of (padded) tracks.
 
     Args:
-      stereo: float32 (2, n_padded) channel-major samples, zeros beyond
-        ``n_valid`` (mono sources duplicate their channel; the downmix
-        happens here).
-      n_valid: true sample count.
+      stereo: float32 (B, 2, n_padded) channel-major samples, zeros beyond
+        each lane's ``n_valid`` (mono sources duplicate their channel; the
+        downmix happens here).
+      n_valid: int64 (B,) true sample counts, on ``stereo``'s device (the
+        reference's traced ``n_valid`` under ``vmap``).
       sr: sample rate.
 
-    Returns a dict of tensors on ``stereo``'s device; see
-    ``parallel/batch.result_from_graph_outputs`` for how each is used.
+    Returns a dict of tensors on ``stereo``'s device, each with a leading
+    batch axis; see ``parallel/batch.result_from_graph_outputs`` for how
+    each is used. Lane b equals the reference's graph of lane b alone.
     """
 
     dev = stereo.device
-    y = 0.5 * (stereo[0] + stereo[1])  # mid == mono downmix
-    side = 0.5 * (stereo[0] - stereo[1])
+    if stereo.dim() != 3 or stereo.shape[1] != 2:
+        raise ValueError(f"full_track_graph takes (B, 2, n) stereo, got {tuple(stereo.shape)}")
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+    left, right = stereo[:, 0], stereo[:, 1]
+    y = 0.5 * (left + right)  # (B, n); mid == mono downmix
+    side = 0.5 * (left - right)
     cfg = DEFAULT_CONFIG
     hop = cfg.hop_length
     n_fft = cfg.n_fft
     total_frames = n_frames(y.shape[-1], hop)
     frame_idx = torch.arange(total_frames, device=dev)
-    f_valid = 1 + n_valid // hop
-    fmask = frame_idx < f_valid
+    f_valid = 1 + n_valid // hop  # (B,)
+    fmask = frame_idx < f_valid[:, None]  # (B, T)
+    fmask_bins = fmask[:, None, :]  # (B, 1, T)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    out: Dict[str, torch.Tensor] = {"f_valid": torch.tensor(f_valid, device=dev)}
+    out: Dict[str, torch.Tensor] = {"f_valid": f_valid}
 
     # ---- shared 2048 STFT family: one batched STFT of [mid, side] -------
-    ms_mag = magnitude(torch.stack([y, side]), n_fft, hop, power=1.0)
-    mag = ms_mag[0]
+    ms_mag = _ms_magnitude(torch.stack([y, side], dim=1), n_fft, hop)
+    mag = ms_mag[:, 0]  # (B, bins, T)
     power = mag * mag
     mel_power = melspectrogram_from_power(power, mel_filterbank(sr, n_fft, cfg.n_mels))
 
@@ -142,36 +172,36 @@ def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str
 
     # Linear accent curves for the downbeat decoder.
     n_low = max(2, int(150.0 * n_fft / sr))
-    out["beat_energy"] = torch.where(fmask, torch.sqrt(mel_power.sum(dim=0) + 1e-12), zero)
-    out["low_energy"] = torch.where(fmask, torch.sqrt(power[:n_low].sum(dim=0) + 1e-12), zero)
+    out["beat_energy"] = torch.where(fmask, torch.sqrt(mel_power.sum(dim=-2) + 1e-12), zero)
+    out["low_energy"] = torch.where(
+        fmask, torch.sqrt(power[:, :n_low].sum(dim=-2) + 1e-12), zero
+    )
 
     # ---- structure: HPSS + combined novelty -----------------------------
     harmonic, percussive = hpss(mag, kernel_size=cfg.hpss_kernel, power=cfg.hpss_power)
     spectral_flux = env
 
-    log_mel = power_to_db(mel_power + 1e-9)
-    mfcc = mfcc_from_log_mel(log_mel, cfg.n_mfcc)
+    log_mel = power_to_db(mel_power + 1e-9, dims=(-2, -1))
+    mfcc = mfcc_from_log_mel(log_mel, cfg.n_mfcc)  # (B, n_mfcc, T)
     mfcc = _smooth_valid(mfcc, f_valid, 1.0)
     context = max(2, int(round(cfg.novelty_context_seconds * sr / float(hop))))
-    cs = torch.cat(
-        [torch.zeros((mfcc.shape[0], 1), device=dev), torch.cumsum(mfcc, dim=1)], dim=1
-    )
+    cs = torch.cat([torch.zeros_like(mfcc[..., :1]), torch.cumsum(mfcc, dim=-1)], dim=-1)
     lo = torch.clamp(frame_idx - context, 0, total_frames)
     hi = torch.clamp(frame_idx + context, 0, total_frames)
-    left_mean = (cs[:, frame_idx] - cs[:, lo]) / torch.clamp_min(frame_idx - lo, 1)
-    right_mean = (cs[:, hi] - cs[:, frame_idx]) / torch.clamp_min(hi - frame_idx, 1)
-    ln = left_mean / (torch.linalg.vector_norm(left_mean, dim=0) + 1e-9)
-    rn = right_mean / (torch.linalg.vector_norm(right_mean, dim=0) + 1e-9)
-    sim = 1.0 - (ln * rn).sum(dim=0)
-    sim_valid = (frame_idx >= context) & (frame_idx < f_valid - context)
+    left_mean = (cs[..., frame_idx] - cs[..., lo]) / torch.clamp_min(frame_idx - lo, 1)
+    right_mean = (cs[..., hi] - cs[..., frame_idx]) / torch.clamp_min(hi - frame_idx, 1)
+    ln = left_mean / (torch.linalg.vector_norm(left_mean, dim=-2, keepdim=True) + 1e-9)
+    rn = right_mean / (torch.linalg.vector_norm(right_mean, dim=-2, keepdim=True) + 1e-9)
+    sim = 1.0 - (ln * rn).sum(dim=-2)
+    sim_valid = (frame_idx >= context) & (frame_idx < (f_valid - context)[:, None])
     self_similarity = torch.where(sim_valid, sim, zero)
 
-    perc_col = torch.where(fmask, percussive.sum(dim=0), zero)
-    harm_col = torch.where(fmask, harmonic.sum(dim=0), zero)
+    perc_col = torch.where(fmask, percussive.sum(dim=-2), zero)
+    harm_col = torch.where(fmask, harmonic.sum(dim=-2), zero)
     ratio_curve = perc_col / (perc_col + harm_col + 1e-9)
     ratio_sigma = max(1.0, 0.5 * sr / float(hop))
     ratio_smooth = _smooth_valid(ratio_curve, f_valid, ratio_sigma)
-    energy_novelty = torch.abs(torch.diff(ratio_smooth, prepend=ratio_smooth[0:1]))
+    energy_novelty = torch.abs(torch.diff(ratio_smooth, prepend=ratio_smooth[..., 0:1]))
 
     w_flux, w_sim, w_energy = cfg.novelty_weights
     combined = (
@@ -188,7 +218,7 @@ def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str
 
     # ---- features: LTAS / centroid / rolloff ----------------------------
     freqs = fft_frequencies(sr, n_fft)
-    out["ltas"] = _masked_mean(mag, fmask[None, :], dim=-1)
+    out["ltas"] = _masked_mean(mag, fmask_bins, dim=-1)  # (B, bins)
     out["centroid"] = torch.where(fmask, spectral_centroid(mag, freqs), zero)
     out["rolloff"] = torch.where(fmask, spectral_rolloff(mag, freqs, cfg.rolloff_percent), zero)
 
@@ -210,7 +240,7 @@ def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str
     )
     # The coarse grid ships; the hop-resolution repeat feeds the key means.
     out["chroma_cq_coarse"] = chroma_cq
-    chroma_cq = torch.repeat_interleave(chroma_cq, cfg.cq_hop // hop, dim=1)[:, :total_frames]
+    chroma_cq = torch.repeat_interleave(chroma_cq, cfg.cq_hop // hop, dim=-1)[..., :total_frames]
     out["chroma_cq"] = chroma_cq
 
     from .harmony import MAJOR_PROFILE, MINOR_PROFILE  # host constants
@@ -221,25 +251,25 @@ def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str
         [np.roll(major, s) for s in range(12)] + [np.roll(minor, s) for s in range(12)]
     )  # (24, 12)
     rot_t = torch.as_tensor(rot, dtype=torch.float32, device=dev)
-    scores = torch.zeros(24, device=dev)
+    scores = torch.zeros((y.shape[0], 24), device=dev)
     for chroma in (chroma_cq, chroma_st):
-        cmean = _masked_mean(chroma, fmask[None, :], dim=-1)
-        norm = torch.linalg.vector_norm(cmean)
+        cmean = _masked_mean(chroma, fmask_bins, dim=-1)  # (B, 12)
+        norm = torch.linalg.vector_norm(cmean, dim=-1, keepdim=True)
         cnorm = cmean / torch.where(norm > 0, norm, torch.ones_like(norm))
-        scores = scores + torch.where(norm > 0, rot_t @ cnorm, zero)
+        scores = scores + torch.where(norm > 0, (rot_t @ cnorm[..., None])[..., 0], zero)
     out["key_scores"] = scores
 
     # ---- spectral balance on the shared 2048 family ---------------------
     bal_w = torch.as_tensor(balance_band_weights(sr, n_fft), device=dev)
-    bal_col = torch.where(fmask[None, :], mag, zero).sum(dim=-1)  # (bins,)
-    bal_sums = bal_w @ bal_col
-    out["balance_total"] = bal_sums.sum()
-    out["balance_low"] = bal_sums[0]
-    out["balance_mid"] = bal_sums[1]
-    out["balance_high"] = bal_sums[2]
+    bal_col = torch.where(fmask_bins, mag, zero).sum(dim=-1)  # (B, bins)
+    bal_sums = (bal_w @ bal_col[..., None])[..., 0]  # (B, 3)
+    out["balance_total"] = bal_sums.sum(dim=-1)
+    out["balance_low"] = bal_sums[:, 0]
+    out["balance_mid"] = bal_sums[:, 1]
+    out["balance_high"] = bal_sums[:, 2]
 
     # ---- loudness ---------------------------------------------------------
-    smask = torch.arange(y.shape[-1], device=dev) < n_valid
+    smask = torch.arange(y.shape[-1], device=dev) < n_valid[:, None]  # (B, n)
     block = cfg.loudness_block_seconds
     out["integrated_lufs"] = integrated_lufs(
         y,
@@ -254,40 +284,41 @@ def full_track_graph(stereo: torch.Tensor, n_valid: int, *, sr: int) -> Dict[str
     out["short_term_db"] = rms_db_curve(y, st_len, st_hop)
     out["momentary_db"] = rms_db_curve(y, mo_len, mo_hop)
     out["true_peak"] = oversampled_peak(y, cfg.true_peak_oversample)
-    out["rms"] = torch.sqrt(_masked_mean(y * y, smask))
+    out["rms"] = torch.sqrt(_masked_mean(y * y, smask, dim=-1))
 
     # ---- stereo image -------------------------------------------------------
-    left, right = stereo[0], stereo[1]
-    n_ok = torch.clamp_min(smask.sum(), 1)
-    lmean = torch.where(smask, left, zero).sum() / n_ok
-    rmean = torch.where(smask, right, zero).sum() / n_ok
+    n_ok = torch.clamp_min(smask.sum(dim=-1, keepdim=True), 1)
+    lmean = torch.where(smask, left, zero).sum(dim=-1, keepdim=True) / n_ok
+    rmean = torch.where(smask, right, zero).sum(dim=-1, keepdim=True) / n_ok
     lc = torch.where(smask, left - lmean, zero)
     rc = torch.where(smask, right - rmean, zero)
-    denom = torch.linalg.vector_norm(lc) * torch.linalg.vector_norm(rc)
+    denom = torch.linalg.vector_norm(lc, dim=-1) * torch.linalg.vector_norm(rc, dim=-1)
     ok = denom > 1e-12
-    corr = torch.clamp(torch.dot(lc, rc) / torch.where(ok, denom, torch.ones_like(denom)), -1.0, 1.0)
+    dot = torch.linalg.vecdot(lc, rc)
+    corr = torch.clamp(dot / torch.where(ok, denom, torch.ones_like(denom)), -1.0, 1.0)
     out["stereo_corr_centered"] = torch.where(ok, corr, torch.ones_like(corr))
-    out["stereo_balance"] = _masked_mean(torch.abs(left), smask) - _masked_mean(
-        torch.abs(right), smask
+    out["stereo_balance"] = _masked_mean(torch.abs(left), smask, dim=-1) - _masked_mean(
+        torch.abs(right), smask, dim=-1
     )
     # y IS the mid channel, so mid_rms == rms.
     out["mid_rms"] = out["rms"]
-    out["side_rms"] = torch.sqrt(_masked_mean(side * side, smask))
+    out["side_rms"] = torch.sqrt(_masked_mean(side * side, smask, dim=-1))
 
-    mid_e = torch.where(fmask[None, :], power, zero)
-    side_e = torch.where(fmask[None, :], ms_mag[1] * ms_mag[1], zero)
+    mid_e = torch.where(fmask_bins, power, zero)
+    side_e = torch.where(fmask_bins, ms_mag[:, 1] * ms_mag[:, 1], zero)
     freqs_t = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
     nyq = sr / 2.0
+    frames_ok = torch.clamp_min(f_valid, 1)
     widths = []
     for lo_f, hi_f in ((0.0, min(200.0, nyq)), (200.0, min(2000.0, nyq)), (2000.0, nyq)):
-        bmask = (freqs_t >= lo_f) & (freqs_t <= hi_f)
-        nb = torch.clamp_min(bmask.sum(), 1) * max(f_valid, 1)
-        m = torch.where(bmask[:, None], mid_e, zero).sum() / nb
-        s = torch.where(bmask[:, None], side_e, zero).sum() / nb
+        bmask = ((freqs_t >= lo_f) & (freqs_t <= hi_f))[:, None]
+        nb = torch.clamp_min(bmask.sum(), 1) * frames_ok
+        m = torch.where(bmask, mid_e, zero).sum(dim=(-2, -1)) / nb
+        s = torch.where(bmask, side_e, zero).sum(dim=(-2, -1)) / nb
         quiet = m <= 1e-12
         ratio = s / torch.where(quiet, torch.ones_like(m), m)
         widths.append(torch.where(quiet, zero, torch.sqrt(ratio)))
-    out["stereo_widths"] = torch.stack(widths)
+    out["stereo_widths"] = torch.stack(widths, dim=-1)  # (B, 3)
 
     return out
 
@@ -335,10 +366,11 @@ _SCALARS = (
 
 
 def pack_outputs(out: Dict[str, torch.Tensor]) -> tuple:
-    """(curves (5, W) float32, curves_half (6, W) int16 bit patterns,
-    chroma_coarse (12, F/4) float16, vec float32): the 16-bit rows are
-    rounded to f16 or bf16 and share one buffer by bit pattern; the
-    chroma ships on its coarse cq_hop grid; the LTAS rides in ``vec``."""
+    """(curves (B, 5, W) float32, curves_half (B, 6, W) int16 bit
+    patterns, chroma_coarse (B, 12, F/4) float16, vec (B, V) float32)
+    from a batch of graph outputs: the 16-bit rows are rounded to f16 or
+    bf16 and share one buffer by bit pattern; the chroma ships on its
+    coarse cq_hop grid; the LTAS rides in ``vec``."""
 
     width = max(
         max(int(out[name].shape[-1]) for name in _CURVE_ROWS),
@@ -349,19 +381,20 @@ def pack_outputs(out: Dict[str, torch.Tensor]) -> tuple:
         x = out[name].to(torch.float32)
         return F.pad(x, (0, width - x.shape[-1]))
 
-    curves = torch.stack([_padded(name) for name in _CURVE_ROWS])
+    curves = torch.stack([_padded(name) for name in _CURVE_ROWS], dim=1)
     half_rows = []
     for name, kind in _CURVE_ROWS_HALF:
         h = _padded(name).to(torch.float16 if kind == "f16" else torch.bfloat16)
         half_rows.append(h.view(torch.int16))
-    curves_half = torch.stack(half_rows)
+    curves_half = torch.stack(half_rows, dim=1)
     vec = torch.cat(
         [
-            torch.stack([out[name].to(torch.float32) for name in _SCALARS]),
+            torch.stack([out[name].to(torch.float32) for name in _SCALARS], dim=-1),
             out["stereo_widths"].to(torch.float32),
             out["key_scores"].to(torch.float32),
             out["ltas"].to(torch.float32),
-        ]
+        ],
+        dim=-1,
     )
     return curves, curves_half, out["chroma_cq_coarse"].to(torch.float16), vec
 
@@ -378,7 +411,8 @@ def unpack_outputs(
     chroma_coarse: np.ndarray,
     vec: np.ndarray,
 ) -> Dict[str, np.ndarray]:
-    """Host-side inverse of ``pack_outputs`` (numpy in, numpy out)."""
+    """Host-side inverse of ``pack_outputs`` for ONE lane (numpy in,
+    numpy out): the host unpacks a batch lane by lane."""
 
     out: Dict[str, np.ndarray] = {
         name: np.asarray(curves[i]) for i, name in enumerate(_CURVE_ROWS)
