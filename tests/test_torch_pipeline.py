@@ -9,6 +9,11 @@ downbeat times 1e-4 s, tracked beats 12 ms, integrated LUFS, true peak
 and RMS 5e-3 dB, loudness curves 2e-2 dB; key, chords, section count
 and MIDI exact. Every ported transport runs: "float32", "int16", "int8"
 and "ms" (the default, "auto").
+
+Downbeat bar positions are exact too, but for one documented case: under
+"ms" this fixture's path holds a shortened bar on which the bar-position
+Viterbi ties exactly, and float rounding picks the labels inside it. There
+the test proves the tie instead (``_assert_rounding_tie``).
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+import track_analyser_tpu.models.downbeat as jax_downbeat
+from chip_smoke import equal_score_key
 from synth import progression
 from track_analyser_tpu.parallel.batch import analyse_track_fused as jax_analyse_track_fused
 from track_analyser_tpu.utils import AudioInput as JaxAudioInput
 from track_analyser_tpu_torch import analyse_track
-from track_analyser_tpu_torch.models.downbeat import equal_score_key
 from track_analyser_tpu_torch.utils import AudioInput
 
 torch.set_num_threads(2)
@@ -67,13 +73,32 @@ def _rich_stereo() -> np.ndarray:
     return stereo * (0.9 / np.abs(stereo).max())
 
 
+# transport -> the per-beat accent curve the JAX decoder scored (float64)
+JAX_ACCENT: dict = {}
+# Transports on which this fixture's downbeat path is an exact tie of the
+# bar-position Viterbi, decided by float rounding: under "ms" the
+# shortened 3/4 bar at beats 28-30 reads 1,3,1 in JAX and 1,2,1 in the
+# port. Every other transport must match JAX's path exactly.
+TIED_TRANSPORTS = ("ms",)
+
+
 @pytest.fixture(scope="module", params=["float32", "int16", "int8", "ms"])
 def both(request):
     stereo = _rich_stereo()
-    ref = jax_analyse_track_fused(
-        JaxAudioInput(samples=stereo.mean(axis=0), sample_rate=SR, stereo_samples=stereo),
-        transport=request.param,
-    )
+    decode = jax_downbeat._viterbi_positions
+
+    def recording(accent, meter):
+        JAX_ACCENT[request.param] = np.array(accent, dtype=np.float64)
+        return decode(accent, meter)
+
+    jax_downbeat._viterbi_positions = recording
+    try:
+        ref = jax_analyse_track_fused(
+            JaxAudioInput(samples=stereo.mean(axis=0), sample_rate=SR, stereo_samples=stereo),
+            transport=request.param,
+        )
+    finally:
+        jax_downbeat._viterbi_positions = decode
     port = analyse_track(
         AudioInput(samples=stereo.mean(axis=0), sample_rate=SR, stereo_samples=stereo),
         transport=request.param,
@@ -99,22 +124,38 @@ def test_beat_fields_match_jax(both) -> None:
         )
 
 
-def test_downbeat_fields_match_jax(both) -> None:
+def _assert_rounding_tie(got: "list[int]", ref: "list[int]", accent: np.ndarray) -> None:
+    """``got`` differs from JAX's path ``ref`` only by a tie that float
+    rounding decides: both paths score exactly the same for any accents
+    (one ``equal_score_key``, with a slip), and JAX's own decoder picks
+    ``got`` once one beat's accent moves by at most four float64 ulps."""
+
+    meter = max(ref)
+    assert equal_score_key(got) == equal_score_key(ref)
+    assert equal_score_key(ref)[2] > 0, "a path without a slip cannot tie"
+    for i in range(accent.size):
+        for toward in (-np.inf, np.inf):
+            nudged = accent.copy()
+            for _ in range(4):
+                nudged[i] = np.nextafter(nudged[i], toward)
+                if jax_downbeat._viterbi_positions(nudged, meter)[1].tolist() == got:
+                    return
+    pytest.fail("JAX's decoder does not reach the port's path within 4 ulps of one beat's accent")
+
+
+def test_downbeat_fields_match_jax(both, request) -> None:
     port, ref = both
+    transport = request.node.callspec.params["both"]
     assert port.downbeat.source == ref.downbeat.source == "rnn"
     np.testing.assert_allclose(
         port.downbeat.downbeat_times, ref.downbeat.downbeat_times, atol=1e-4
     )
-    # Equal where the reference path holds no slip. Across a slip the
-    # reference decoder ties exactly (non-downbeat positions share one
-    # emission, a stay costs what a skip costs) and float rounding picks
-    # the labels inside the shortened bar; there the port must find a
-    # path of the same score: same meter, same downbeats, same slips.
-    if port.downbeat.beat_positions != ref.downbeat.beat_positions:
-        assert equal_score_key(port.downbeat.beat_positions) == equal_score_key(
-            ref.downbeat.beat_positions
+    if transport in TIED_TRANSPORTS and port.downbeat.beat_positions != ref.downbeat.beat_positions:
+        _assert_rounding_tie(
+            port.downbeat.beat_positions, ref.downbeat.beat_positions, JAX_ACCENT[transport]
         )
-        assert equal_score_key(ref.downbeat.beat_positions)[2] > 0
+    else:
+        assert port.downbeat.beat_positions == ref.downbeat.beat_positions
 
 
 def test_equal_score_key_marks_exact_viterbi_ties() -> None:

@@ -109,22 +109,6 @@ def _viterbi_positions(accent: np.ndarray, meter: int) -> tuple[float, np.ndarra
     return score, positions + 1
 
 
-def equal_score_key(positions: "list[int]") -> tuple:
-    """(meter, downbeat indices, slip count) of a 1-based bar-position
-    path, the meter read as its largest position.
-
-    ``_viterbi_positions`` scores a path by exactly these: every
-    non-downbeat position has the same emission, and a stay costs what a
-    skip costs. Paths with one key therefore tie for any accents (e.g.
-    1,2,1 and 1,3,1 across a shortened 3/4 bar), and float rounding picks
-    between them; without a slip the key fixes the path."""
-
-    p = np.asarray(positions, dtype=int)
-    meter = int(p.max()) if p.size else 0
-    slips = int(np.count_nonzero(p[1:] != p[:-1] % max(meter, 1) + 1))
-    return meter, tuple(np.flatnonzero(p == 1).tolist()), slips
-
-
 def _zscore(x: np.ndarray) -> np.ndarray:
     std = float(np.std(x))
     if std < 1e-12:

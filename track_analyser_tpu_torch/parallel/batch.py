@@ -713,34 +713,48 @@ def _upload(parts: "Sequence[np.ndarray]", n_valid: "Sequence[int]", dev: torch.
 
 
 def _dispatch(transport: str, staged: tuple, *, sr: int) -> tuple:
-    """Enqueue the batched graph on the uploaded payload. Returns
-    (outputs, (start, done) CUDA events or None)."""
+    """Enqueue the batched graph on the uploaded payload and, on CUDA, the
+    readback of its outputs into pinned host buffers right behind it.
+    Returns (host outputs, (start, graph done, copied) CUDA events or
+    None); the host outputs are valid once ``copied`` has fired."""
 
     parts, n_valid, ready = staged
-    events = None
-    if ready is not None:
-        stream = torch.cuda.current_stream(n_valid.device)
-        stream.wait_event(ready)
-        # The parts were allocated on an upload stream: keep the caching
-        # allocator from reusing them while this stream still reads them.
-        for t in parts + (n_valid,):
-            t.record_stream(stream)
-        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
+    if ready is None:
+        with torch.inference_mode():
+            return _core_graph(_decode_payload(transport, parts), n_valid, sr=sr), None
+    stream = torch.cuda.current_stream(n_valid.device)
+    stream.wait_event(ready)
+    # The parts were allocated on an upload stream: keep the caching
+    # allocator from reusing them while this stream still reads them.
+    for t in parts + (n_valid,):
+        t.record_stream(stream)
+    events = (
+        torch.cuda.Event(enable_timing=True),
+        torch.cuda.Event(enable_timing=True),
+        torch.cuda.Event(),
+    )
+    events[0].record(stream)
     with torch.inference_mode():
         outs = _core_graph(_decode_payload(transport, parts), n_valid, sr=sr)
-    if events is not None:
-        events[1].record(torch.cuda.current_stream(n_valid.device))
-    return outs, events
+        events[1].record(stream)
+        # Copies queued here, in stream order after this chunk's graph and
+        # before the next chunk's, so a finisher waits for its own chunk
+        # only.
+        host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
+        for h, o in zip(host, outs):
+            h.copy_(o, non_blocking=True)
+    events[2].record(stream)
+    return host, events
 
 
 def _fetch(outs: tuple, events) -> "list[np.ndarray]":
-    """Wait for the graph (its done event), then read every output back."""
+    """Wait for the chunk's readback (its ``copied`` event) and return the
+    outputs as numpy arrays."""
 
     if events is not None:
-        events[1].synchronize()
+        events[2].synchronize()
         _count_stage("graph", events[0].elapsed_time(events[1]) / 1e3)
-    return [o.cpu().numpy() for o in outs]
+    return [o.numpy() for o in outs]
 
 
 def _lane_outputs(fetched: "list[np.ndarray]", k: int, host_exact) -> Dict[str, np.ndarray]:
@@ -847,8 +861,10 @@ def analyse_library(
                       a CUDA event;
       dispatch     -> one batched graph per chunk of up to
                       ``device_batch`` tracks of one bucket, formed
-                      longest first (enqueued, not waited for);
-      finish pool  -> readback once the chunk's done event fires, lane
+                      longest first, with its readback into pinned
+                      host buffers queued behind it (enqueued, not
+                      waited for);
+      finish pool  -> waits for the chunk's readback event, then lane
                       by lane unpack and host finishers, manifest.
 
     ``device``: one card ("cuda", the default, raises without CUDA) or
