@@ -19,7 +19,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "SOURCES", "nvcc", "build", "build_all", "load"]
+__all__ = ["CSRC", "SOURCES", "nvcc", "build", "build_text", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -41,6 +41,22 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+def _compile(src: Path, lib_path: Path) -> str:
+    """nvcc ``src`` into ``lib_path`` (written under another name, then
+    renamed, so a half-written library is never loaded). Returns the log."""
+
+    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [
+        nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {src.name} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return proc.stdout + proc.stderr
+
+
 def build(source: str) -> tuple[Path, str]:
     """Compile ``csrc/<source>`` unless a library of this exact source
     already exists. Returns (library path, compiler log; "" if cached)."""
@@ -51,16 +67,23 @@ def build(source: str) -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [
-        nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc {source} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    return lib_path, _compile(src, lib_path)
+
+
+def build_text(stem: str, text: str) -> tuple[Path, str]:
+    """Compile CUDA source ``text`` (``profile_stft`` builds edited copies
+    of a kernel this way): the text is written to
+    ``build/torch_kernels/<stem>_<hash>.cu`` and compiled unless its library
+    already exists. Returns (library path, compiler log; "" if cached)."""
+
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    lib_path = _BUILD_DIR / f"lib{stem}_{digest}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _BUILD_DIR / f"{stem}_{digest}.cu"
+    src.write_text(text)
+    return lib_path, _compile(src, lib_path)
 
 
 def build_all(sources: "tuple[str, ...]" = SOURCES) -> "dict[str, tuple[Path, str]]":

@@ -10,8 +10,11 @@ graph runs on ``--batch`` copies of the track as one batch (the sweep's
 ``device_batch``); pad, upload and readback move the whole batch, and the
 finishers run on one lane. One more fused-graph run under
 ``torch.profiler`` gives the device time by kernel and the device's busy
-share of that run. Prints the card's name and power limit beside the
-numbers. Needs a CUDA card.
+share of that run, and the peak device memory of the whole script.
+With ``TA_PALLAS_STFT=1`` in the environment the graph's STFT is the fused
+kernel, as everywhere in the port; the first line says which it was.
+Prints the card's name and power limit beside the numbers. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops import fused_stft
 from .parallel import batch
 from .substrate import bucket_length, unpack_outputs
 from .utils import AudioInput
@@ -108,6 +112,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    route = "the fused kernel (TA_PALLAS_STFT=1)" if fused_stft.switched_on() else "cuFFT (ops/stft.magnitude)"
+    print(f"the graph's [mid, side] STFT goes through {route}")
     x = _make_track(args.seconds)
     audio = AudioInput(samples=x.mean(axis=0), sample_rate=44_100, stereo_samples=x)
     _stages(audio, dev, args.batch)  # warm-up: cuFFT plans, handles, allocator
@@ -147,6 +153,7 @@ def main() -> None:
     print("device time by kernel (top 25):")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<4d} {name[:110]}")
+    print(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB -- {card}")
 
 
 if __name__ == "__main__":
