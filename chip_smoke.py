@@ -35,7 +35,30 @@ Phases (any failure exits non-zero and prints no result line):
      track against a batch-1 analyse_track and the two sweeps against each
      other, the manifest's resume; then times warm sweeps at device_batch
      1 and 4 over a 40-source library (the five WAVs linked eight times),
-     five runs each, with quartiles and the stage times per track.
+     three runs each, with quartiles and the stage times per track;
+  8. the median31 kernel at the DSP separator's shape, (2, 2049, 8193)
+     from a 4096/1024 STFT of two channels: both axes bit-identical to the
+     plain version, timed beside the bound;
+  9. stem separation at full width on the 181 s stereo WAV: the band-split
+     mask net (models.separation.separate, the bundled v5 checkpoint), the
+     DSP separator (analysis.stems.separate_stems_arrays) and
+     separate_stems(path, dir), each called directly. Every stem finite and
+     of the input's shape, the DSP stems sum to the mixture within 1e-4,
+     the medians launch once per axis per DSP call and never in the net,
+     two runs are bit-identical, the written PCM_16 WAVs decode to the
+     blend within 1.5 steps of 1/32768 (rounding plus the 32767/32768
+     scale), and the card agrees with device="cpu" on the 30 s excerpt
+     within 1e-4. Timed: both separators on the card (CUDA events, and one
+     run each under torch.profiler), the net's parts, istft at both
+     framings, the WAV writes, peak device memory, and a warm
+     analyse_track(path, use_stems=True) beside the plain call;
+ 10. rendering: render_all without plots on phase 4's result (the files,
+     report.json's key set), the tempogram graph on the card against the
+     CPU within 1e-4, and the one call
+     analyse_track(path, output_dir=dir, use_stems=True): with matplotlib
+     installed every artefact, the five plots and the four stems; without
+     it the stems, report.json and the CSVs, then ImportError from the
+     plots (never a silent skip).
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,9 +90,24 @@ SECONDS = 181.0
 SR = 44_100
 BUCKET = 8_388_608  # a 181 s track's bucket: a (1025, 16 385) spectrogram
 MAIN_SHAPE = (1025, 16_385)
+STEMS_SHAPE = (2, 2049, 8193)  # the DSP separator's 4096/1024 STFT of two channels
+STEMS_TOL = 1e-4  # absolute, on stems of a mixture of peak <= 1
+PCM16_STEP = 1.0 / 32768.0
+REPORT_KEYS = {
+    "audio": {"path", "sample_rate", "duration"},
+    "beat": {"bpm", "confidence", "count", "tracked"},
+    "downbeat": {"source", "count"},
+    "structure": {"label", "category", "start", "end", "confidence"},
+    "loudness": {"integrated_lufs", "loudness_range", "true_peak_dbfs", "rms_dbfs"},
+    "harmonic": {"key", "key_confidence", "secondary_key", "chord_change_points"},
+    "features": {"ltas", "spectral_centroid", "spectral_rolloff"},
+    "stereo": {"mid_rms", "side_rms", "correlation", "width"},
+}
+TABLE_FILES = ("report.json", "beats.csv", "sections.csv", "report.html", "hook.mid", "bass.mid")
+PLOT_FILES = ("waveform_beats.png", "tempogram.png", "novelty_boundaries.png", "ltas.png", "stereo_width.png")
 SWEEP_BATCH = 4
 THROUGHPUT_COPIES = 8  # the sweep's five decodable WAVs, 40 sources
-THROUGHPUT_RUNS = 5
+THROUGHPUT_RUNS = 3
 MEDIAN_SOURCE = "track_analyser_tpu_torch/csrc/median31.cu"
 STFT_SOURCE = "track_analyser_tpu_torch/csrc/stft_mag.cu"
 REPLACES = {
@@ -472,7 +510,8 @@ def main() -> None:
     phase("4 main path: analyse_track on a 181 s WAV (transport auto = ms)")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "track_181s.wav"
-        write_wav(path, make_track(SECONDS), SR)
+        main_track = make_track(SECONDS)
+        write_wav(path, main_track, SR)
         results, walls = [], []
         torch.cuda.reset_peak_memory_stats()
         launches.reset()
@@ -515,7 +554,7 @@ def main() -> None:
     )
     print(f"launches over the two ms calls: {json.dumps(path_launches['analyse_track (2 calls)'])}")
     print(f"peak device memory allocated: {peak_mb:.0f} MiB")
-    result = results[-1]
+    result = main_result = results[-1]
     print(
         f"bpm {result.beat.bpm:.4f} | beats {len(result.beat.beat_times)} | downbeat source "
         f"{result.downbeat.source} | key {result.harmonic.primary_key.key} | sections "
@@ -776,17 +815,325 @@ def main() -> None:
         )
     print(f"chip_smoke wall so far: {time.perf_counter() - wall_start:.1f} s")
 
+    # ---- 8. median kernel at the DSP separator's shape ---------------------
+    phase(f"8 median31 kernel at the DSP separator's shape {STEMS_SHAPE}")
+    x = torch.rand(STEMS_SHAPE, device="cuda", generator=gen)
+    stems_median = {}
+    for axis in (-1, -2):
+        got = median.median31(x, axis)
+        ref = median.median31_reference(x, axis)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        errs[axis] = max(errs[axis], err)
+        check(torch.equal(got, ref), f"median31 axis {axis} shape {STEMS_SHAPE}: max |diff| {err}")
+        del got, ref
+        kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+        plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
+        bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
+        stems_median[axis] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(
+            f"{REPLACES[axis][0]} at {STEMS_SHAPE}: bit-identical; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of the kernel's time -- {card}"
+        )
+    del x
+
+    # ---- 9. stems at full width ---------------------------------------------
+    phase("9 stems at full width: mask net v5, DSP separator, separate_stems on the 181 s stereo WAV")
+    import contextlib
+
+    from track_analyser_tpu_torch.analysis import stems as stems_module
+    from track_analyser_tpu_torch.io import decode_wav, load_audio
+    from track_analyser_tpu_torch.models import separation, separation_net
+    from track_analyser_tpu_torch.ops.stft import istft, stft
+    from track_analyser_tpu_torch.substrate import pad_to_bucket
+
+    stem_names = separation_net.STEMS
+    no_median = {"median31_time": 0, "median31_freq": 0, "stft_magnitude": 0}
+    once_per_axis = {"median31_time": 1, "median31_freq": 1, "stft_magnitude": 0}
+
+    def wall_ms(fn):
+        """(result, host milliseconds) of ``fn``, the card drained on both sides."""
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def hold_stems(label: str, stems: dict, like: np.ndarray) -> None:
+        check(tuple(stems) == stem_names, f"{label}: stems {tuple(stems)}")
+        for name, data in stems.items():
+            check(data.shape == like.shape and data.dtype == np.float32, f"{label} {name}: shape {data.shape} {data.dtype}")
+            check(bool(np.isfinite(data).all()), f"{label} {name}: not finite")
+
+    def profiled(label: str, fn) -> None:
+        """One run of ``fn`` under torch.profiler: launches, device-busy time, top kernels."""
+
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            _out, ms = wall_ms(fn)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+        if not events:
+            print(f"{label} under the profiler: no device events recorded (launches and busy time not measured)")
+            return
+        busy_ms = sum(e.device_time_total for e in events) / 1e3
+        by_name: dict = {}
+        for e in events:
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, count + 1)
+        print(
+            f"{label} under the profiler: wall {ms:.2f} ms, {len(events)} device kernels/copies, device busy "
+            f"{busy_ms:.2f} ms ({100 * busy_ms / ms:.1f}% of wall) -- {card}"
+        )
+        for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {us / 1e3:9.3f} ms  x{count:<4d} {name[:100]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "track_181s.wav"
+        write_wav(path, main_track, SR)
+        samples, sr, _meta = load_audio(path, mono=False)
+        check(samples.shape == main_track.shape and sr == SR, f"loader gave {samples.shape} at {sr} Hz")
+        check(separation.model_name() == "bandsplit-masknet-v5", f"resolver names {separation.model_name()}")
+
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        net_runs, net_walls = [], []
+        for _ in range(2):
+            out, ms = wall_ms(lambda: separation.separate(samples, sr, device="cuda"))
+            net_runs.append(out)
+            net_walls.append(ms)
+        net_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        check(launches.read() == no_median, f"the mask net launched a kernel of the analysis path: {launches.read()}")
+        hold_stems("mask net", net_runs[0], samples)
+        check(all(np.array_equal(net_runs[0][k], net_runs[1][k]) for k in stem_names), "mask net: two runs differ")
+        net = net_runs[0]
+        del net_runs
+
+        torch.cuda.reset_peak_memory_stats()
+        dsp_runs, dsp_walls = [], []
+        for _ in range(2):
+            before = launches.read()
+            out, ms = wall_ms(lambda: stems_module.separate_stems_arrays(samples, sr, device="cuda"))
+            after = launches.read()
+            check(
+                all(after[k] - before[k] == v for k, v in once_per_axis.items()),
+                f"DSP separator: launches went {before} -> {after}, expected +{once_per_axis}",
+            )
+            dsp_runs.append(out)
+            dsp_walls.append(ms)
+        dsp_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        hold_stems("DSP separator", dsp_runs[0], samples)
+        check(all(np.array_equal(dsp_runs[0][k], dsp_runs[1][k]) for k in stem_names), "DSP separator: two runs differ")
+        dsp = dsp_runs[0]
+        del dsp_runs
+        off = float(np.abs(sum(dsp[k] for k in stem_names) - samples).max())
+        check(off <= STEMS_TOL, f"DSP stems sum to the mixture within {off}, beyond {STEMS_TOL}")
+        print(
+            f"mask net: stems {samples.shape} finite, two runs bit-identical, no median launch; DSP separator: the "
+            f"same, medians +1 per axis per call, stems sum to the mixture within {off:.2e}"
+        )
+        print(
+            f"separation.separate wall {net_walls[0]:.1f} ms cold, {net_walls[1]:.1f} ms warm, peak device memory "
+            f"{net_peak_mib:.0f} MiB; separate_stems_arrays wall {dsp_walls[0]:.1f} / {dsp_walls[1]:.1f} ms, peak "
+            f"{dsp_peak_mib:.0f} MiB -- {card}"
+        )
+
+        launches.reset()
+        bundle, stems_ms = wall_ms(lambda: stems_module.separate_stems(str(path), Path(tmp) / "stems", device="cuda"))
+        check(bundle is not None and bundle.model_name == "bandsplit-masknet-v5", f"separate_stems gave {bundle}")
+        check(launches.read() == once_per_axis, f"separate_stems: launches {launches.read()}, expected {once_per_axis}")
+        check(tuple(bundle.stems) == stem_names, f"separate_stems wrote {tuple(bundle.stems)}")
+        blend = {}
+        worst = 0.0
+        for name in stem_names:
+            w = stems_module._BLEND_NEURAL_WEIGHT[name]
+            blend[name] = (w * net[name] + (1.0 - w) * dsp[name]).astype(np.float32)
+            written, wsr, meta = decode_wav(bundle.stems[name])
+            check(written.shape == samples.shape and wsr == SR and meta["subtype"] == "PCM_16", f"{name}.wav: {written.shape} {wsr} {meta}")
+            check(bool(np.isfinite(written).all()), f"{name}.wav: not finite")
+            worst = max(worst, float(np.abs(written - np.clip(blend[name], -1.0, 1.0)).max()))
+        check(worst <= 1.5 * PCM16_STEP, f"written stems are {worst} off the blend, beyond 1.5 / 32768")
+        t0 = time.perf_counter()
+        for name in stem_names:
+            write_wav(Path(tmp) / f"again_{name}.wav", blend[name], SR, subtype="PCM_16")
+        write_ms = (time.perf_counter() - t0) * 1e3
+        print(
+            f"separate_stems(path, dir): {stems_ms:.1f} ms wall, model {bundle.model_name}, four PCM_16 WAVs within "
+            f"{worst * 32768:.3f} steps of the blend of the runs above; writing the four WAVs alone {write_ms:.1f} ms -- {card}"
+        )
+        del blend, written
+
+        # The card against the host on the 30 s excerpt of phase 5.
+        for label, fn in (
+            ("mask net", lambda d: separation.separate(excerpt, SR, device=d)),
+            ("DSP separator", lambda d: stems_module.separate_stems_arrays(excerpt, SR, device=d)),
+        ):
+            on_card, on_host = fn("cuda"), fn("cpu")
+            hold_stems(f"{label}, excerpt", on_card, excerpt)
+            off = max(float(np.abs(on_card[k] - on_host[k]).max()) for k in stem_names)
+            check(off <= STEMS_TOL, f"{label}: card and host differ by {off} on the 30 s excerpt, beyond {STEMS_TOL}")
+            print(f"{label} on the 30 s excerpt: card against host within {off:.2e} (limit {STEMS_TOL})")
+
+        # Device times of the two separators and of their parts, on tensors
+        # that already lie on the card.
+        model = separation_net.params_from_jax(separation_net.load_checkpoint(separation._checkpoint_path())).to(dev)
+        padded, f_valid = pad_to_bucket(samples, hop=separation_net.HOP)
+        padded_dsp, f_valid_dsp = pad_to_bucket(samples, hop=stems_module._HOP)
+        check(padded.shape == (2, BUCKET), f"bucket {padded.shape}")
+        y = torch.from_numpy(padded).to(dev)
+        y_dsp = torch.from_numpy(padded_dsp).to(dev)
+        n_dsp = padded_dsp.shape[-1]
+        run_net = lambda: separation_net.separate_signal_multi(model, y, n_samples=BUCKET, f_valid=f_valid)  # noqa: E731
+        with torch.inference_mode():
+            run_dsp = lambda: stems_module._dsp_separate_body(y_dsp, sr=SR, n_samples=n_dsp, f_valid=f_valid_dsp)  # noqa: E731
+            net_dev_ms = time_cuda_ms(run_net, reps=5, warmup=1)
+            dsp_dev_ms = time_cuda_ms(run_dsp, reps=5, warmup=1)
+            spec = stft(y, 2048, 512)
+            check(tuple(spec.shape) == (2,) + MAIN_SHAPE, f"net spectrogram {tuple(spec.shape)}")
+            stft_ms = time_cuda_ms(lambda: stft(y, 2048, 512), reps=5, warmup=1)
+            encode_ms = time_cuda_ms(lambda: model.encode(spec), reps=5, warmup=1)
+            features_ms = time_cuda_ms(lambda: model.features(spec, f_valid), reps=5, warmup=1)
+            h = model.features(spec, f_valid)
+            decode_ms = time_cuda_ms(lambda: [model.decode_mask(h, name) for name in stem_names], reps=5, warmup=1)
+            istft_net_ms = time_cuda_ms(lambda: istft(spec, 2048, 512, BUCKET, f_valid=f_valid), reps=5, warmup=1)
+            del h, spec
+            spec = stft(y_dsp, 4096, 1024)
+            check(tuple(spec.shape) == STEMS_SHAPE, f"DSP spectrogram {tuple(spec.shape)}, expected {STEMS_SHAPE}")
+            stft_dsp_ms = time_cuda_ms(lambda: stft(y_dsp, 4096, 1024), reps=5, warmup=1)
+            istft_dsp_ms = time_cuda_ms(lambda: istft(spec, 4096, 1024, n_dsp, f_valid=f_valid_dsp), reps=5, warmup=1)
+            del spec
+            n_bands = len(model.bands)
+            print(
+                f"on the card at (2, {BUCKET}), CUDA events: mask net {net_dev_ms:.2f} ms = stft {stft_ms:.2f} + encoder and "
+                f"{len(model.dilations)} mixing blocks {features_ms:.2f} (the {n_bands} per-band encoder GEMMs alone "
+                f"{encode_ms:.2f}) + {4 * n_bands} per-band decoder GEMMs and masks {decode_ms:.2f} + 4 x (multiply, istft "
+                f"{istft_net_ms:.2f}); DSP separator {dsp_dev_ms:.2f} ms, its stft {stft_dsp_ms:.2f}, its istft "
+                f"{istft_dsp_ms:.2f} -- {card}"
+            )
+            profiled("mask net", run_net)
+            profiled("DSP separator", run_dsp)
+        del y, y_dsp, model
+
+        # The main path with stems: medians once per axis in the fused graph
+        # and once per axis in the DSP separator. Without output_dir the
+        # stems go to ./stems, so the call runs inside the temporary directory.
+        with contextlib.chdir(tmp):
+            analyse_track(str(path), use_stems=True, device="cuda")  # warms this path's plans
+            launches.reset()
+            with_stems, with_stems_ms = wall_ms(lambda: analyse_track(str(path), use_stems=True, device="cuda"))
+            path_launches["analyse_track(use_stems=True)"] = counts = launches.read()
+        _plain, plain_call_ms = wall_ms(lambda: analyse_track(str(path), device="cuda"))
+        expected = {"median31_time": 2, "median31_freq": 2, "stft_magnitude": 0}
+        check(counts == expected, f"analyse_track(use_stems=True): launches {counts}, expected {expected}")
+        check(
+            with_stems.stems is not None and with_stems.stems.model_name == "bandsplit-masknet-v5"
+            and all(p.exists() for p in with_stems.stems.stems.values()),
+            f"analyse_track(use_stems=True): stems {with_stems.stems}",
+        )
+        check(not differing_fields(with_stems, _plain), "use_stems=True changed an analysis field")
+        print(
+            f"warm analyse_track(path, use_stems=True): {with_stems_ms:.1f} ms wall beside {plain_call_ms:.1f} ms for the "
+            f"plain call; launches {json.dumps(counts)} -- {card}"
+        )
+    del net, dsp, samples
+
+    # ---- 10. rendering -------------------------------------------------------
+    phase("10 rendering: render_all, the tempogram graph, analyse_track(output_dir, use_stems=True)")
+    import importlib.util
+
+    from track_analyser_tpu_torch import report
+    from track_analyser_tpu_torch.rendering import render_all
+
+    def hold_artefacts(folder: Path, names, bpm: float) -> None:
+        missing = [name for name in names if not (folder / name).is_file() or not (folder / name).stat().st_size]
+        check(not missing, f"{folder.name}: missing or empty {missing}")
+        data = json.loads((folder / "report.json").read_text())
+        check(set(data) == set(REPORT_KEYS), f"report.json keys {sorted(data)}")
+        for key, want in REPORT_KEYS.items():
+            for item in data[key] if isinstance(data[key], list) else [data[key]]:
+                check(set(item) == want, f"report.json {key}: keys {sorted(item)}")
+        check(data["beat"]["bpm"] == bpm, f"report.json bpm {data['beat']['bpm']}, the result's {bpm}")
+        check((folder / "hook.mid").read_bytes()[:4] == b"MThd", "hook.mid is no MIDI file")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tables = Path(tmp) / "tables"
+        _out, render_ms = wall_ms(
+            lambda: render_all(main_result, tables, report_request=report.ReportRequest(include_plots=False), device="cuda")
+        )
+        hold_artefacts(tables, TABLE_FILES, main_result.beat.bpm)
+        check(not list(tables.glob("*.png")), "plots were written though none were asked for")
+        print(f"render_all without plots: {sorted(p.name for p in tables.iterdir())} in {render_ms:.1f} ms")
+
+        mono, f_valid = pad_to_bucket(main_track.mean(axis=0), hop=512)
+        n_valid = main_track.shape[-1]
+        with torch.inference_mode():
+            y = torch.from_numpy(mono).to(dev)
+            on_card = report._tempogram_graph(y, n_valid, sr=SR, hop_length=512)[:, :f_valid].cpu().numpy()
+            tempogram_ms = time_cuda_ms(lambda: report._tempogram_graph(y, n_valid, sr=SR, hop_length=512), reps=5, warmup=1)
+            on_host = report._tempogram_graph(torch.from_numpy(mono), n_valid, sr=SR, hop_length=512)[:, :f_valid].numpy()
+        check(on_card.shape == (384, f_valid) and bool(np.isfinite(on_card).all()), f"tempogram {on_card.shape}")
+        off = float(np.abs(on_card - on_host).max())
+        check(off <= 1e-4, f"tempogram: card and host differ by {off}, beyond 1e-4")
+        print(f"tempogram graph {on_card.shape}: card against host within {off:.2e}; {tempogram_ms:.2f} ms on the card -- {card}")
+        del y
+
+        # The one call a user makes, stems and artefacts together. The plots
+        # need matplotlib: without it the call must get as far as the stems,
+        # report.json and the CSVs and then raise ImportError, never skip them.
+        have_plots = importlib.util.find_spec("matplotlib") is not None
+        print(f"matplotlib: {'present' if have_plots else 'absent'}")
+        path = Path(tmp) / "track_181s.wav"
+        write_wav(path, main_track, SR)
+        full = Path(tmp) / "full"
+        stem_files = tuple(f"track_181s_{name}.wav" for name in stem_names)
+        stages = []
+        launches.reset()
+        t0 = time.perf_counter()
+        try:
+            rendered = analyse_track(str(path), output_dir=full, use_stems=True, device="cuda", progress_callback=stages.append)
+        except ImportError as exc:
+            check(not have_plots, f"plots failed though matplotlib is installed: {exc}")
+            rendered = None
+            print(f"a request for plots without matplotlib raises ImportError: {exc}")
+        else:
+            check(have_plots, "plots were asked for without matplotlib and nothing was raised")
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        path_launches["analyse_track(output_dir, use_stems=True)"] = counts = launches.read()
+        expected = {"median31_time": 2, "median31_freq": 2, "stft_magnitude": 0}
+        check(counts == expected, f"analyse_track(output_dir, use_stems=True): launches {counts}, expected {expected}")
+        check(stages[-1] == ("render" if have_plots else "stems"), f"progress stages {stages}")
+        if have_plots:
+            hold_artefacts(full, TABLE_FILES + PLOT_FILES + stem_files, rendered.beat.bpm)
+            check(rendered.stems.model_name == "bandsplit-masknet-v5", f"stems {rendered.stems}")
+        else:
+            missing = [name for name in ("report.json", "beats.csv", "sections.csv") + stem_files if not (full / name).is_file()]
+            check(not missing, f"before the plots failed the call should have written {missing}")
+            check(not list(full.glob("*.png")), "a plot was written without matplotlib")
+        for name in stem_files:
+            written, _sr, _meta = decode_wav(full / name)
+            check(written.shape == main_track.shape and bool(np.isfinite(written).all()), f"{name}: {written.shape}")
+        print(
+            f"analyse_track(path, output_dir, use_stems=True): {full_ms:.1f} ms wall, wrote {sorted(p.name for p in full.iterdir())}; "
+            f"launches {json.dumps(counts)} -- {card}"
+        )
+    print(f"chip_smoke wall so far: {time.perf_counter() - wall_start:.1f} s")
+
     total = {k: sum(p[k] for p in path_launches.values()) for k in ("median31_time", "median31_freq", "stft_magnitude")}
     kernels = []
     for axis in (-1, -2):
         name, replaces = REPLACES[axis]
         kernel_ms, plain_ms, bound_ms, bound_by = median_timings[(batch_shape, axis)]
+        stems_ms, stems_plain_ms, stems_bound_ms, stems_bound_by = stems_median[axis]
         kernels.append(
             {
                 "name": name, "route": "cuda", "source": MEDIAN_SOURCE, "replaces": replaces,
                 "launches": total[name], "max_abs_err": errs[axis], "ms": kernel_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": list(batch_shape), "launches_by_path": {k: v[name] for k, v in path_launches.items()},
+                "stems_shape": list(STEMS_SHAPE), "stems_ms": stems_ms, "stems_plain_ms": stems_plain_ms,
+                "stems_bound_ms": stems_bound_ms, "stems_bound_by": stems_bound_by,
             }
         )
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = stft_timings[2 * SWEEP_BATCH]

@@ -134,7 +134,7 @@ def test_on_error_raise_aborts_on_the_undecodable_file(sources) -> None:
 @pytest.mark.parametrize(
     "kwargs, error",
     [
-        ({"output_dir": "out"}, NotImplementedError),
+        ({"transport": "float64"}, ValueError),
         ({"transport": "ms6"}, NotImplementedError),
         ({"transport": "ms5"}, NotImplementedError),
         ({"on_error": "ignore"}, ValueError),

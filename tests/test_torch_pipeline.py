@@ -360,8 +360,6 @@ def test_unported_options_raise_not_implemented() -> None:
         {"transport": "ms6"},
         {"transport": "ms5"},
         {"fused": False},
-        {"use_stems": True},
-        {"output_dir": "out"},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             analyse_track(audio, device="cpu", **kwargs)

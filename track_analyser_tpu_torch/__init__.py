@@ -6,10 +6,13 @@ path, ``analyse_track(path)`` (the fused one-pass analysis of one track
 plus the host finishers, producing the same ``TrackAnalysisResult``),
 and the library sweep ``parallel.batch.analyse_library``, both through
 one fused graph with a leading batch axis, with the float32, int16, int8
-and "ms" transports. HPSS's two sliding medians run through a
-hand-written CUDA kernel (``csrc/median31.cu``), and the fused |STFT|
-through another (``csrc/stft_mag.cu``, when ``TA_PALLAS_STFT=1``);
-everything else is plain PyTorch.
+and "ms" transports; stem separation (``use_stems=True``: the band-split
+mask net blended with the DSP separator) and artefact rendering
+(``output_dir``: report.json, CSVs, HTML, MIDI, plots). HPSS's two
+sliding medians run through a hand-written CUDA kernel
+(``csrc/median31.cu``), and the fused |STFT| through another
+(``csrc/stft_mag.cu``, when ``TA_PALLAS_STFT=1``); everything else is
+plain PyTorch.
 
 This package imports torch, numpy and scipy, never jax.
 """

@@ -1,5 +1,6 @@
-"""Analysis results and host finishers (beats, structure, loudness)."""
+"""Analysis results and host finishers (beats, structure, loudness),
+and stem separation."""
 
-from . import beats, loudness, structure
+from . import beats, loudness, stems, structure
 
-__all__ = ["beats", "loudness", "structure"]
+__all__ = ["beats", "loudness", "stems", "structure"]

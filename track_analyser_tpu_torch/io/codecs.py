@@ -230,7 +230,7 @@ def decode_file(path: str | Path) -> Tuple[np.ndarray, int, Dict[str, object]]:
         with open(file_path, "rb") as fh:  # sniff only; decoders re-read
             head = fh.read(12)
     except OSError as exc:
-        raise RuntimeError(f"Could not decode audio file: {file_path}") from exc
+        raise AudioDecodeError(f"Could not decode audio file: {file_path}") from exc
     if head[0:4] in (b"RIFF", b"RIFX"):
         return decode_wav(file_path)
     if head[0:4] == b"FORM":

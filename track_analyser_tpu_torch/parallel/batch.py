@@ -13,7 +13,8 @@ axis).
   decode + quantise workers, upload workers (pinned host buffers, one
   side stream each), one batched dispatch per chunk of ``device_batch``
   lanes of one bucket, and finish workers that read back, unpack lane by
-  lane and run the host finishers.
+  lane, run the host finishers and (with ``output_dir``) render each
+  track's artefacts.
 
 Transports (host -> device payloads), numpy copies of the reference's
 quantisers: "float32", "int16", "int8" (blockwise int8 per channel) and
@@ -895,16 +896,14 @@ def analyse_library(
     analyses ``sources[i]`` where ``i % count == index`` and returns
     SkippedTrack(reason="other-shard") for the rest.
 
-    ``output_dir`` (artefact rendering) is not ported yet and raises
-    NotImplementedError.
+    ``output_dir``: render every track's artefacts
+    (``rendering.outputs.render_all``) into a subdirectory of its own,
+    named by the source file's stem (``track_<index>`` for a source
+    without a path). Plots need matplotlib.
 
     ``stage_seconds()`` sums each stage's time over the sweep.
     """
 
-    if output_dir is not None:
-        raise NotImplementedError(
-            "output_dir (artefact rendering) is not ported yet: ROADMAP.md Queue 1 item 13"
-        )
     _check_transport(transport)
     if on_error not in ("skip", "raise"):
         raise ValueError(f"on_error must be 'skip' or 'raise', got {on_error!r}")
@@ -967,6 +966,10 @@ def analyse_library(
     n_done = 0
     total = len(todo)
     finish_lock = threading.Lock()
+    # Rendering is not thread-safe (pyplot mutates a global figure registry
+    # and font cache), so artefact writing serialises on its own lock;
+    # readback and assembly of other chunks still overlap.
+    render_lock = threading.Lock()
 
     def _record(src, entry: dict) -> None:
         nonlocal n_done
@@ -986,6 +989,12 @@ def analyse_library(
                 audio, _lane_outputs(fetched, k, host_exact), seed=seed
             )
             results[idx] = result
+            if output_dir is not None:
+                from ..rendering import outputs as outputs_module
+
+                name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
+                with render_lock:
+                    outputs_module.render_all(result, Path(output_dir) / name, device=dev)
             _record(src, {"bpm": result.beat.bpm, "key": result.harmonic.primary_key.key})
         _count_stage("finish", time.perf_counter() - t0)
 

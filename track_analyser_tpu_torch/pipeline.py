@@ -2,7 +2,8 @@
 
 The JAX package's signature, result fields and progress-callback stage
 names, plus an explicit ``device``. The fused path is the one ported:
-one pass of the fused graph on the device, then the host finishers.
+one pass of the fused graph on the device, then the host finishers, then
+(on request) stem separation and artefact rendering.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from . import features, harmony, stereo
-from .analysis import beats, loudness, structure
+from .analysis import beats, loudness, stems, structure
 from .config import DEFAULT_SEED
 from .device import resolve_device
 from .utils import AudioInput, coerce_audio
@@ -24,9 +25,7 @@ __all__ = ["TrackAnalysisResult", "analyse_track"]
 
 @dataclass
 class TrackAnalysisResult:
-    """Container aggregating all per-module analysis artefacts.
-
-    ``stems`` stays None: stem separation is not ported yet."""
+    """Container aggregating all per-module analysis artefacts."""
 
     audio: AudioInput
     beat: beats.BeatAnalysis
@@ -36,7 +35,7 @@ class TrackAnalysisResult:
     harmonic: harmony.HarmonyAnalysis
     features: features.FeatureAnalysis
     stereo: stereo.StereoAnalysis
-    stems: None = None
+    stems: Optional[stems.StemBundle] = None
 
 
 def analyse_track(
@@ -59,19 +58,16 @@ def analyse_track(
     channel as blockwise int8, with host-exact stereo values), as in the
     JAX package.
 
-    Not ported yet, and raising NotImplementedError: ``output_dir``
-    (artefact rendering), ``use_stems=True`` and ``fused=False`` (the
+    ``use_stems=True`` separates the source file into four stem WAVs
+    (``analysis.stems.separate_stems``; ``result.stems`` is None for a
+    source without a path); ``output_dir`` triggers artefact rendering
+    (``rendering.outputs.render_all``: report.json, CSVs, HTML, MIDI and
+    the plots, which need matplotlib). Both run on ``device``.
+
+    Not ported yet, and raising NotImplementedError: ``fused=False`` (the
     per-module path).
     """
 
-    if output_dir is not None:
-        raise NotImplementedError(
-            "output_dir (artefact rendering) is not ported yet: ROADMAP.md Queue 1 item 13"
-        )
-    if use_stems:
-        raise NotImplementedError(
-            "use_stems=True is not ported yet: ROADMAP.md Queue 1 item 10 (stems)"
-        )
     if not fused:
         raise NotImplementedError(
             "fused=False is not ported yet: ROADMAP.md Queue 1 item 8 (the per-module path)"
@@ -87,4 +83,17 @@ def analyse_track(
     if progress_callback:
         for stage in ("beats", "structure", "loudness", "harmonic", "features", "stereo"):
             progress_callback(stage)
+
+    if use_stems:
+        result.stems = stems.separate_stems(audio.path, output_dir, seed=seed, device=dev)
+        if progress_callback:
+            progress_callback("stems")
+
+    if output_dir is not None:
+        from .rendering import outputs  # local import to avoid a circular dep
+
+        outputs.render_all(result, Path(output_dir), device=dev)
+        if progress_callback:
+            progress_callback("render")
+
     return result

@@ -41,7 +41,7 @@ from .ops.resample import oversampled_peak
 from .ops.spectral import balance_band_weights, spectral_centroid, spectral_rolloff
 from .ops.stft import fft_frequencies, magnitude, n_frames
 
-__all__ = ["full_track_graph", "bucket_length", "pack_outputs", "unpack_outputs"]
+__all__ = ["full_track_graph", "bucket_length", "pad_to_bucket", "pack_outputs", "unpack_outputs"]
 
 
 def bucket_length(n: int, *, hop: int = 512, min_bucket: int = 1 << 15) -> int:
@@ -53,6 +53,20 @@ def bucket_length(n: int, *, hop: int = 512, min_bucket: int = 1 << 15) -> int:
     candidate = int(np.ceil(2.0 ** (exp / 8.0)))
     quantum = hop * 128
     return int(np.ceil(candidate / quantum)) * quantum
+
+
+def pad_to_bucket(y: np.ndarray, *, hop: int = 512) -> "tuple[np.ndarray, int]":
+    """Zero-pad the last axis to its bucket length (host helper).
+
+    Returns ``(padded, f_valid)`` with ``f_valid = 1 + n // hop``: the one
+    place that formula lives for the report's tempogram and the two
+    separators."""
+
+    y = np.asarray(y, dtype=np.float32)
+    n = y.shape[-1]
+    padded = np.zeros(y.shape[:-1] + (bucket_length(n, hop=hop),), dtype=np.float32)
+    padded[..., :n] = y
+    return padded, 1 + n // hop
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim) -> torch.Tensor:
