@@ -59,6 +59,26 @@ Phases (any failure exits non-zero and prints no result line):
      installed every artefact, the five plots and the four stems; without
      it the stems, report.json and the CSVs, then ImportError from the
      plots (never a silent skip).
+ 11. the per-module path at full width: analyse_track(path, fused=False) on
+     the 181 s WAV, cold and warm, with each stage's ms (progress
+     callbacks), one warm call under torch.profiler and peak device memory;
+     the medians launch once per axis per call and the fused STFT never
+     (also with TA_PALLAS_STFT=1); BPM 118 +- 0.1, every field finite; it
+     agrees with the fused float32 path on the card (every field but the
+     downbeats, which the two paths decode from different flux curves) and,
+     on phase 5's excerpt, with the fused path and with device="cpu" in
+     every field (compare_results, rounding_differs=True);
+ 12. the ms6 / ms5 transports: analyse_track on the 181 s WAV, uploaded
+     bytes against 6 / 5 bits a stereo sample pair plus a scale and a base
+     per block, BPM 118 +- 0.1 and test_agreement.py's margins against
+     float32 (the section count held on the library's sectioned 181 s
+     track, where it is decisive), warm wall time beside "ms" and
+     "float32"; one ms5 sweep at device_batch 4 over phase 7's library;
+ 13. the CLI by subprocess: analyze --plots skip (exit 0, report.json's
+     BPM), analyze with plots (exit 1 with the ImportError where
+     matplotlib is absent), a file that does not decode (exit 1),
+     analyze-batch --transport ms5 --device-batch 4 --manifest twice (the
+     second run reports the tracks as already done).
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -309,7 +329,9 @@ def equal_score_key(positions: "list[int]") -> tuple:
     return meter, tuple(np.flatnonzero(p == 1).tolist()), slips
 
 
-def compare_results(got, ref, label: str = "gpu vs cpu", *, rounding_differs: bool = False) -> None:
+def compare_results(
+    got, ref, label: str = "gpu vs cpu", *, rounding_differs: bool = False, downbeats: bool = True
+) -> None:
     """Every TrackAnalysisResult field within the CPU parity tests'
     tolerances (tests/test_torch_pipeline.py).
 
@@ -317,7 +339,11 @@ def compare_results(got, ref, label: str = "gpu vs cpu", *, rounding_differs: bo
     two results come from differently rounded graphs: another device,
     another batch width, another STFT) a path that differs must score
     exactly what the other does (``equal_score_key``, with a slip), so both
-    are optimal for either result's accents; such a tie is printed."""
+    are optimal for either result's accents; such a tie is printed.
+    ``downbeats=False`` leaves the downbeat times and bar positions out
+    (the source is still compared): the per-module and the fused path feed
+    the decoder different flux curves, in the JAX package as in the port
+    (ROADMAP.md Queue 3), so their bar paths may differ off a tie."""
 
     def close(a, b, atol, what, rtol=0.0):
         a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
@@ -333,11 +359,18 @@ def compare_results(got, ref, label: str = "gpu vs cpu", *, rounding_differs: bo
     worst["beat_times"] = close(got.beat.beat_times, ref.beat.beat_times, 1e-4, "beat times")
     worst["tracked_times"] = close(got.beat.tracked_times, ref.beat.tracked_times, 0.012, "tracked beats")
     check(got.downbeat.source == ref.downbeat.source, f"{label}: downbeat source")
-    worst["downbeat_times"] = close(
-        got.downbeat.downbeat_times, ref.downbeat.downbeat_times, 1e-4, "downbeat times"
-    )
     gp, rp = got.downbeat.beat_positions, ref.downbeat.beat_positions
-    if gp != rp:
+    if not downbeats:
+        print(
+            f"{label}: downbeats not compared: {len(got.downbeat.downbeat_times)} against "
+            f"{len(ref.downbeat.downbeat_times)}, bar positions {'equal' if gp == rp else 'differ'}",
+            flush=True,
+        )
+    else:
+        worst["downbeat_times"] = close(
+            got.downbeat.downbeat_times, ref.downbeat.downbeat_times, 1e-4, "downbeat times"
+        )
+    if downbeats and gp != rp:
         gk, rk = equal_score_key(gp), equal_score_key(rp)
         check(rounding_differs, f"{label}: beat positions differ")
         check(gk == rk and rk[2] > 0, f"{label}: beat positions differ off a tie: {gk} vs {rk}")
@@ -404,6 +437,86 @@ def frame_norm_err(got, ref) -> float:
     return float(((got - ref).abs() / (norm + 1e-9)).max())
 
 
+def wall_ms(fn):
+    """(result, host milliseconds) of ``fn``, the card drained on both sides."""
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(label: str, fn, card: str) -> None:
+    """One run of ``fn`` under torch.profiler: launches, device-busy time, top kernels."""
+
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        _out, ms = wall_ms(fn)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    if not events:
+        print(f"{label} under the profiler: no device events recorded (launches and busy time not measured)")
+        return
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    by_name: dict = {}
+    for e in events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.device_time_total, count + 1)
+    print(
+        f"{label} under the profiler: wall {ms:.2f} ms, {len(events)} device kernels/copies, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / ms:.1f}% of wall) -- {card}"
+    )
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<4d} {name[:100]}")
+
+
+# The sweep's library (phases 7, 12 and 13): (file, recipe, seconds, bpm,
+# seed, stereo); None marks the file that does not decode.
+LIBRARY = [
+    ("a_118bpm.wav", make_track, SECONDS, BPM, SEED, True),
+    ("b.wav", make_arranged_track, SECONDS, 124.0, 1, True),
+    ("c_mono.wav", make_arranged_track, 150.0, 128.0, 2, False),
+    ("bad.wav", None, None, None, None, None),
+    ("d.wav", make_arranged_track, 120.0, 122.0, 3, True),
+    ("e_30s.wav", make_arranged_track, 30.0, 126.0, 11, True),
+]
+
+
+def write_library(folder: Path) -> "tuple[list[str], list[int], list[int]]":
+    """Write LIBRARY into ``folder``: (sources, decodable sample counts,
+    indices of the decodable sources)."""
+
+    from track_analyser_tpu_torch.io import write_wav
+
+    sources, lengths = [], []
+    for name, recipe, seconds, bpm, seed, stereo in LIBRARY:
+        path = folder / name
+        if recipe is None:
+            path.write_bytes(b"RIFF this file is not audio " * 64)
+        else:
+            x = with_noise_floor(recipe(seconds, bpm=bpm, seed=seed), 100 + seed)
+            write_wav(path, x if stereo else x.mean(axis=0), SR)
+            lengths.append(int(seconds * SR))
+        sources.append(str(path))
+    return sources, lengths, [i for i, item in enumerate(LIBRARY) if item[1] is not None]
+
+
+def sweep_chunks(lengths: "list[int]", lanes: int) -> int:
+    """Chunks of a sweep at ``lanes`` per dispatch: one bucket's tracks share them."""
+
+    from track_analyser_tpu_torch.parallel import batch
+
+    per_bucket: dict = {}
+    for n in lengths:
+        per_bucket[batch.ms_bucket_length(n)] = per_bucket.get(batch.ms_bucket_length(n), 0) + 1
+    return sum(math.ceil(c / lanes) for c in per_bucket.values())
+
+
 class Launches:
     """Reads and zeroes every kernel wrapper's launch count."""
 
@@ -423,6 +536,233 @@ class Launches:
             "median31_freq": self.median.launches_freq,
             "stft_magnitude": self.stft.launches,
         }
+
+
+ONCE_PER_AXIS = {"median31_time": 1, "median31_freq": 1, "stft_magnitude": 0}
+# test_agreement.py's decision margins for ms6 and ms5 against float32:
+# integrated LUFS and true peak (dB); BPM within 0.1, sections within one.
+SUBBYTE_MARGIN_DB = (0.15, 0.1)
+SUBBYTE_BITS = {"ms6": 6, "ms5": 5}
+
+
+def per_module_phase(card: str, launches: "Launches", path_launches: dict, main_track: np.ndarray, excerpt: np.ndarray) -> dict:
+    """Phase 11: ``analyse_track(path, fused=False)`` at full width on the
+    181 s WAV, its launches, stage times, profile and peak memory, against
+    the fused path on the card and against the host on the excerpt."""
+
+    import torch
+
+    from track_analyser_tpu_torch import analyse_track
+    from track_analyser_tpu_torch.io import write_wav
+    from track_analyser_tpu_torch.utils import AudioInput
+
+    phase("11 per-module path: analyse_track(path, fused=False) on the 181 s WAV")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "track_181s.wav")
+        write_wav(path, main_track, SR)
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        walls = []
+        for label in ("cold", "warm"):
+            before = launches.read()
+            stamps: list = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = analyse_track(
+                path, fused=False, device="cuda", progress_callback=lambda s: stamps.append((s, time.perf_counter()))
+            )
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            after = launches.read()
+            check(
+                all(after[k] - before[k] == v for k, v in ONCE_PER_AXIS.items()),
+                f"per-module {label} run: launches went {before} -> {after}, expected +{ONCE_PER_AXIS}",
+            )
+            marks = [t0] + [t for _stage, t in stamps]
+            stages = {stage: round((t - marks[i]) * 1e3, 1) for i, (stage, t) in enumerate(stamps)}
+            check(list(stages) == ["audio", "beats", "structure", "loudness", "harmonic", "features", "stereo"], f"stages {list(stages)}")
+            print(f"{label} analyse_track(path, fused=False): {walls[-1]:.1f} ms wall; ms per stage {json.dumps(stages)} -- {card}")
+        out["stages_ms"] = stages
+        path_launches["analyse_track(fused=False) (2 calls)"] = launches.read()
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        os.environ["TA_PALLAS_STFT"] = "1"  # acts on the fused graph only
+        try:
+            launches.reset()
+            analyse_track(path, fused=False, device="cuda")
+            path_launches["analyse_track(fused=False), TA_PALLAS_STFT=1"] = counts = launches.read()
+        finally:
+            os.environ.pop("TA_PALLAS_STFT", None)
+        check(counts == ONCE_PER_AXIS, f"per-module with TA_PALLAS_STFT=1: launches {counts}, expected {ONCE_PER_AXIS}")
+        profiled("warm analyse_track(path, fused=False)", lambda: analyse_track(path, fused=False, device="cuda"), card)
+        analyse_track(path, transport="float32", device="cuda")  # warms the fused float32 path
+        fused, fused_ms = wall_ms(lambda: analyse_track(path, transport="float32", device="cuda"))
+    out["walls_ms"], out["fused_ms"] = walls, fused_ms
+    print(
+        f"warm analyse_track(path): per-module {walls[-1]:.1f} ms, fused float32 {fused_ms:.1f} ms; peak device memory "
+        f"of the per-module calls {out['peak_mib']:.0f} MiB; launches with TA_PALLAS_STFT=1 {json.dumps(counts)} -- {card}"
+    )
+    check(abs(result.beat.bpm - BPM) <= 0.1, f"per-module bpm {result.beat.bpm} not within 0.1 of {BPM}")
+    leaves = list(numeric_leaves(result))
+    for name, value in leaves:
+        check(bool(np.all(np.isfinite(value))), f"per-module {name} is not finite")
+    print(f"per-module: bpm {result.beat.bpm:.4f}, {len(leaves)} numeric fields, all finite")
+    # On this track the two paths' downbeat decoders read different flux
+    # curves and part (ROADMAP.md Queue 3); every other field is held.
+    compare_results(result, fused, "per-module vs fused (float32) on the card", rounding_differs=True, downbeats=False)
+    print(f"fields not bit-identical to the fused path: {differing_fields(result, fused) or 'none'}")
+    audio = AudioInput(samples=excerpt.mean(axis=0), sample_rate=SR, stereo_samples=excerpt)
+    on_card = analyse_track(audio, fused=False, device="cuda")
+    on_host = analyse_track(audio, fused=False, device="cpu")
+    compare_results(on_card, on_host, "per-module gpu vs cpu (30 s excerpt)", rounding_differs=True)
+    fused_card = analyse_track(audio, transport="float32", device="cuda")
+    compare_results(on_card, fused_card, "per-module vs fused (float32) on the card (30 s excerpt)", rounding_differs=True)
+    return out
+
+
+def hold_margins(label: str, result, exact, *, sections: bool) -> None:
+    """``result`` inside test_agreement.py's decision margins around the
+    float32 ``exact``: integrated LUFS, true peak, key, downbeat source
+    and, with ``sections``, the section count within one; finite fields."""
+
+    loud_tol, peak_tol = SUBBYTE_MARGIN_DB
+    off_lufs = abs(result.loudness.integrated_lufs - exact.loudness.integrated_lufs)
+    off_peak = abs(result.loudness.true_peak_dbfs - exact.loudness.true_peak_dbfs)
+    check(off_lufs <= loud_tol and off_peak <= peak_tol, f"{label}: LUFS off {off_lufs}, true peak off {off_peak}")
+    check(result.harmonic.primary_key.key == exact.harmonic.primary_key.key, f"{label}: key")
+    check(result.downbeat.source == exact.downbeat.source, f"{label}: downbeat source")
+    n_sec, n_exact = len(result.structure.segments), len(exact.structure.segments)
+    check(not sections or abs(n_sec - n_exact) <= 1, f"{label}: {n_sec} sections against {n_exact}")
+    for name, value in numeric_leaves(result):
+        check(bool(np.all(np.isfinite(value))), f"{label}: {name} is not finite")
+    print(
+        f"{label}: bpm {result.beat.bpm:.4f} ({exact.beat.bpm:.4f} with float32), LUFS off by {off_lufs:.4f}, true peak "
+        f"by {off_peak:.4f}, {n_sec} sections ({n_exact} with float32{'' if sections else ', not held'}), key "
+        f"{result.harmonic.primary_key.key}"
+    )
+
+
+def subbyte_phase(card: str, launches: "Launches", path_launches: dict, main_track: np.ndarray,
+                  sources: "list[str]", lengths: "list[int]", good: "list[int]") -> dict:
+    """Phase 12: the ms6 / ms5 transports on the 181 s WAV (bytes, BPM,
+    agreement with float32, warm wall time, beside ms and float32), the
+    same margins on the library's sectioned 181 s track, and an ms5 sweep."""
+
+    import torch
+
+    from track_analyser_tpu_torch import analyse_track
+    from track_analyser_tpu_torch.io import write_wav
+    from track_analyser_tpu_torch.parallel import batch
+    from track_analyser_tpu_torch.pipeline import TrackAnalysisResult
+
+    phase(f"12 ms6 / ms5 transports: analyse_track on the 181 s WAV, an ms5 sweep at device_batch {SWEEP_BATCH}")
+    n = main_track.shape[-1]
+    bucket = batch.ms_bucket_length(n)
+    runs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "track_181s.wav")
+        write_wav(path, main_track, SR)
+        for transport in ("float32", "ms", "ms6", "ms5"):
+            batch.reset_upload_bytes()
+            analyse_track(path, transport=transport, device="cuda")  # warms this transport's plans
+            nbytes = batch.upload_bytes()
+            result, ms = wall_ms(lambda: analyse_track(path, transport=transport, device="cuda"))
+            runs[transport] = (result, nbytes, ms)
+    sectioned = sources[1]  # make_arranged_track, 181 s: its sections are decisive
+    exact_sectioned = analyse_track(sectioned, transport="float32", device="cuda")
+    for transport, bits in SUBBYTE_BITS.items():
+        result, nbytes, ms = runs[transport]
+        block = batch._ms_block(bits)
+        want = bucket * bits // 8 + 8 * (bucket // block) + 8  # codes, a float32 scale and base per block, n_valid
+        check(nbytes == want, f"{transport}: uploaded {nbytes} bytes, expected {want}")
+        check(abs(result.beat.bpm - BPM) <= 0.1, f"{transport}: bpm {result.beat.bpm} not within 0.1 of {BPM}")
+        # bench.py's recipe sits on the section picker's threshold (ROADMAP.md
+        # Queue 3): its section count is held on the sectioned track instead.
+        hold_margins(f"{transport}, 118-BPM track", result, runs["float32"][0], sections=False)
+        other = analyse_track(sectioned, transport=transport, device="cuda")
+        check(abs(other.beat.bpm - exact_sectioned.beat.bpm) <= 0.1, f"{transport}, sectioned track: bpm {other.beat.bpm}")
+        hold_margins(f"{transport}, sectioned track", other, exact_sectioned, sections=True)
+    for transport, (_result, nbytes, ms) in runs.items():
+        print(
+            f"{transport}: uploads {nbytes} bytes ({nbytes / n:.4f} B per stereo sample pair), warm analyse_track(path) "
+            f"{ms:.1f} ms -- {card}"
+        )
+
+    chunks = sweep_chunks(lengths, SWEEP_BATCH)
+    launches.reset()
+    outcome, sweep_ms = wall_ms(
+        lambda: batch.analyse_library(sources, device="cuda", transport="ms5", device_batch=SWEEP_BATCH)
+    )
+    path_launches["sweep (ms5)"] = counts = launches.read()
+    expected = {"median31_time": chunks, "median31_freq": chunks, "stft_magnitude": 0}
+    check(counts == expected, f"ms5 sweep: launches {counts}, expected {expected}")
+    for i, item in enumerate(outcome):
+        want = TrackAnalysisResult if i in good else batch.TrackFailure
+        check(isinstance(item, want), f"ms5 sweep: source {i} gave {type(item).__name__}")
+    check(abs(outcome[0].beat.bpm - BPM) <= 0.1, f"ms5 sweep: bpm {outcome[0].beat.bpm}")
+    print(f"ms5 sweep of {len(sources)} sources: {sweep_ms:.1f} ms wall (cold for this setting), launches {json.dumps(counts)} -- {card}")
+    torch.cuda.synchronize()
+    return {k: (v[1], v[2]) for k, v in runs.items()}
+
+
+def cli_phase(card: str, main_track: np.ndarray, main_bpm: float, sources: "list[str]", good: "list[int]") -> None:
+    """Phase 13: the port's CLI in subprocesses on the card: analyze with
+    and without plots, a file that does not decode, analyze-batch with a
+    manifest run twice."""
+
+    import importlib.util
+
+    from track_analyser_tpu_torch.io import write_wav
+
+    phase("13 CLI by subprocess: analyze, its error probes, analyze-batch with resume")
+    have_plots = importlib.util.find_spec("matplotlib") is not None
+    repo = Path(__file__).resolve().parent
+
+    def cli(*args: object) -> "subprocess.CompletedProcess":
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "track_analyser_tpu_torch.cli", *map(str, args)],
+            cwd=repo, capture_output=True, text=True, timeout=600,
+        )
+        shown = " ".join(Path(str(a)).name if isinstance(a, Path) or "/" in str(a) else str(a) for a in args)
+        print(f"cli {shown}: exit {proc.returncode} in {(time.perf_counter() - t0) * 1e3:.0f} ms -- {card}")
+        return proc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "track_181s.wav"
+        write_wav(wav, main_track, SR)
+        proc = cli("analyze", wav, "--out", Path(tmp) / "skip", "--plots", "skip")
+        check(proc.returncode == 0, f"analyze --plots skip: exit {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
+        bpm = json.loads((Path(tmp) / "skip" / "report.json").read_text())["beat"]["bpm"]
+        check(abs(bpm - main_bpm) <= 1e-9 and f"BPM: {bpm:.2f}" in proc.stdout, f"analyze: report.json bpm {bpm}, phase 4 {main_bpm}")
+        print(f"analyze --plots skip: exit 0, report.json bpm {bpm:.4f} (phase 4's analyse_track: {main_bpm:.4f})")
+
+        proc = cli("analyze", wav, "--out", Path(tmp) / "plots")
+        if have_plots:
+            check(proc.returncode == 0, f"analyze with plots: exit {proc.returncode}: {proc.stdout}")
+            check(all((Path(tmp) / "plots" / name).is_file() for name in PLOT_FILES), "analyze: plots missing")
+        else:
+            check(proc.returncode == 1 and proc.stdout.startswith("Error: ") and "matplotlib" in proc.stdout,
+                  f"analyze without matplotlib: exit {proc.returncode}: {proc.stdout}")
+        print(f"analyze with plots (matplotlib {'present' if have_plots else 'absent'}): exit {proc.returncode}: {proc.stdout.strip()[:200]}")
+
+        bad = Path(tmp) / "bad.wav"
+        bad.write_bytes(b"this file is not audio\n" * 32)
+        proc = cli("analyze", bad, "--out", Path(tmp) / "bad")
+        check(proc.returncode == 1 and proc.stdout.startswith("Error: Could not decode audio file"), f"decode probe: {proc.returncode} {proc.stdout}")
+        print(f"a file that does not decode: exit 1, {proc.stdout.strip()}")
+
+        argv = ["analyze-batch", *sources, "--out", Path(tmp) / "library", "--manifest", Path(tmp) / "m.jsonl",
+                "--transport", "ms5", "--device-batch", SWEEP_BATCH] + ([] if have_plots else ["--plots", "skip"])
+        n_good, n_bad = len(good), len(sources) - len(good)
+        for run, want in (("first", f"({n_good} track(s), {n_bad} failed)"), ("second", f"(0 track(s), {n_good} already done, {n_bad} failed)")):
+            proc = cli(*argv)
+            head = proc.stdout.splitlines()[0] if proc.stdout else ""
+            check(proc.returncode == 0 and head.endswith(want), f"analyze-batch, {run} run: exit {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
+            print(f"analyze-batch ({run} run): {head}")
+        for i in good:
+            folder = Path(tmp) / "library" / Path(sources[i]).stem
+            check((folder / "report.json").is_file() and (folder / "hook.mid").is_file(), f"{folder.name}: artefacts missing")
 
 
 def main() -> None:
@@ -656,31 +996,12 @@ def main() -> None:
 
     # ---- 7. library sweep ----------------------------------------------------
     phase(f"7 library sweep: analyse_library(transport='ms', device_batch={SWEEP_BATCH})")
-    library = [  # (file, recipe, seconds, bpm, seed, stereo)
-        ("a_118bpm.wav", make_track, SECONDS, BPM, SEED, True),
-        ("b.wav", make_arranged_track, SECONDS, 124.0, 1, True),
-        ("c_mono.wav", make_arranged_track, 150.0, 128.0, 2, False),
-        ("bad.wav", None, None, None, None, None),
-        ("d.wav", make_arranged_track, 120.0, 122.0, 3, True),
-        ("e_30s.wav", make_arranged_track, 30.0, 126.0, 11, True),
-    ]
+    # The library stays on disk for phases 12 and 13.
+    library_dir = tempfile.TemporaryDirectory()
+    sources, lengths, good = write_library(Path(library_dir.name))
+    chunks = sweep_chunks(lengths, SWEEP_BATCH)
+    print(f"{len(sources)} sources, {len(good)} decodable -> {chunks} chunks at device_batch {SWEEP_BATCH}")
     with tempfile.TemporaryDirectory() as tmp:
-        sources, lengths = [], []
-        for name, recipe, seconds, bpm, seed, stereo in library:
-            path = Path(tmp) / name
-            if recipe is None:
-                path.write_bytes(b"RIFF this file is not audio " * 64)
-            else:
-                x = with_noise_floor(recipe(seconds, bpm=bpm, seed=seed), 100 + seed)
-                write_wav(path, x if stereo else x.mean(axis=0), SR)
-                lengths.append(int(seconds * SR))
-            sources.append(str(path))
-        good = [i for i, item in enumerate(library) if item[1] is not None]
-        per_bucket: dict = {}
-        for n in lengths:
-            per_bucket[batch.ms_bucket_length(n)] = per_bucket.get(batch.ms_bucket_length(n), 0) + 1
-        chunks = sum(math.ceil(c / SWEEP_BATCH) for c in per_bucket.values())
-        print(f"{len(sources)} sources, {len(good)} decodable; buckets {per_bucket} -> {chunks} chunks")
 
         sweeps, sweep_walls, sweep_peak_mib = {}, {}, {}
         for label, fused in (("fused_stft", True), ("cufft", False)):
@@ -851,43 +1172,11 @@ def main() -> None:
     no_median = {"median31_time": 0, "median31_freq": 0, "stft_magnitude": 0}
     once_per_axis = {"median31_time": 1, "median31_freq": 1, "stft_magnitude": 0}
 
-    def wall_ms(fn):
-        """(result, host milliseconds) of ``fn``, the card drained on both sides."""
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     def hold_stems(label: str, stems: dict, like: np.ndarray) -> None:
         check(tuple(stems) == stem_names, f"{label}: stems {tuple(stems)}")
         for name, data in stems.items():
             check(data.shape == like.shape and data.dtype == np.float32, f"{label} {name}: shape {data.shape} {data.dtype}")
             check(bool(np.isfinite(data).all()), f"{label} {name}: not finite")
-
-    def profiled(label: str, fn) -> None:
-        """One run of ``fn`` under torch.profiler: launches, device-busy time, top kernels."""
-
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
-            _out, ms = wall_ms(fn)
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-        if not events:
-            print(f"{label} under the profiler: no device events recorded (launches and busy time not measured)")
-            return
-        busy_ms = sum(e.device_time_total for e in events) / 1e3
-        by_name: dict = {}
-        for e in events:
-            us, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.device_time_total, count + 1)
-        print(
-            f"{label} under the profiler: wall {ms:.2f} ms, {len(events)} device kernels/copies, device busy "
-            f"{busy_ms:.2f} ms ({100 * busy_ms / ms:.1f}% of wall) -- {card}"
-        )
-        for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            print(f"  {us / 1e3:9.3f} ms  x{count:<4d} {name[:100]}")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "track_181s.wav"
@@ -1011,8 +1300,8 @@ def main() -> None:
                 f"{istft_net_ms:.2f}); DSP separator {dsp_dev_ms:.2f} ms, its stft {stft_dsp_ms:.2f}, its istft "
                 f"{istft_dsp_ms:.2f} -- {card}"
             )
-            profiled("mask net", run_net)
-            profiled("DSP separator", run_dsp)
+            profiled("mask net", run_net, card)
+            profiled("DSP separator", run_dsp, card)
         del y, y_dsp, model
 
         # The main path with stems: medians once per axis in the fused graph
@@ -1119,6 +1408,15 @@ def main() -> None:
             f"launches {json.dumps(counts)} -- {card}"
         )
     print(f"chip_smoke wall so far: {time.perf_counter() - wall_start:.1f} s")
+
+    # ---- 11-13. per-module path, ms6 / ms5, CLI -------------------------------
+    try:
+        per_module_phase(card, launches, path_launches, main_track, excerpt)
+        subbyte_phase(card, launches, path_launches, main_track, sources, lengths, good)
+        cli_phase(card, main_track, main_result.beat.bpm, sources, good)
+    finally:
+        library_dir.cleanup()
+    print(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s")
 
     total = {k: sum(p[k] for p in path_launches.values()) for k in ("median31_time", "median31_freq", "stft_magnitude")}
     kernels = []

@@ -1,12 +1,13 @@
 """The port's downbeat TCN against the JAX package's, on the CPU.
 
 ``params_from_jax`` + ``DownbeatTCN`` against ``tcn_forward`` with random
-numpy parameters and with the bundled v2 checkpoint, and
-``activation_graph`` against ``_activation_graph`` on a bucket-padded
-signal. Float32 convolutions and matmuls sum in another order in XLA and
-PyTorch, so the outputs differ in the last few ulps: probabilities are
-held at atol 1e-5; logits reach |13|, where an ulp is ~1e-6, so they are
-held at 5e-6 of the largest logit.
+numpy parameters and with the bundled v2 checkpoint, ``activation_graph``
+against ``_activation_graph`` on a bucket-padded signal, and the GRU
+checkpoint's ``DownbeatGRU`` (its outputs are held against the JAX
+``forward`` in ``test_torch_modules.py``). Float32 convolutions and
+matmuls sum in another order in XLA and PyTorch, so the outputs differ in
+the last few ulps: probabilities are held at atol 1e-5; logits reach |13|,
+where an ulp is ~1e-6, so they are held at 5e-6 of the largest logit.
 """
 
 from __future__ import annotations
@@ -111,6 +112,29 @@ def test_activation_graph_matches_jax_on_padded_signal() -> None:
         np.testing.assert_allclose(got[b], ref, rtol=0, atol=1e-5)
 
 
-def test_gru_checkpoint_is_refused() -> None:
-    with pytest.raises(NotImplementedError, match="GRU"):
-        t_net.params_from_jax({"in_w": np.zeros((128, 8), np.float32)})
+def test_gru_checkpoint_serves_the_per_module_path_only(monkeypatch) -> None:
+    """The GRU checkpoint builds a ``DownbeatGRU`` whose ``nn.GRU`` holds
+    the JAX weights transposed with a zero hidden bias; the fused path
+    leaves it out unless TRACK_ANALYSER_TPU_NET_DOWNBEATS=1."""
+
+    from track_analyser_tpu_torch.models import downbeat as t_downbeat
+    from track_analyser_tpu_torch.parallel import batch as tb
+
+    gru_ckpt = CKPT.with_name("downbeat_v1.npz")
+    params = t_net.load_checkpoint(gru_ckpt)
+    model = t_net.params_from_jax(params)
+    assert isinstance(model, t_net.DownbeatGRU)
+    for layer in (0, 1):
+        np.testing.assert_array_equal(getattr(model.gru, f"weight_ih_l{layer}").detach().numpy(), params[f"gru{layer}_wx"].T)
+        np.testing.assert_array_equal(getattr(model.gru, f"weight_hh_l{layer}").detach().numpy(), params[f"gru{layer}_wh"].T)
+        np.testing.assert_array_equal(getattr(model.gru, f"bias_ih_l{layer}").detach().numpy(), params[f"gru{layer}_b"])
+        assert not getattr(model.gru, f"bias_hh_l{layer}").detach().any()
+
+    monkeypatch.setenv("TRACK_ANALYSER_TPU_DOWNBEAT_CKPT", str(gru_ckpt))
+    monkeypatch.delenv("TRACK_ANALYSER_TPU_NET_DOWNBEATS", raising=False)
+    assert t_downbeat._net_params() is not None
+    assert tb._bundled_net(torch.device("cpu")) is None
+    monkeypatch.setenv("TRACK_ANALYSER_TPU_NET_DOWNBEATS", "1")
+    assert isinstance(tb._bundled_net(torch.device("cpu")), t_net.DownbeatGRU)
+    monkeypatch.setenv("TRACK_ANALYSER_TPU_NET_DOWNBEATS", "0")
+    assert tb._bundled_net(torch.device("cpu")) is None

@@ -8,7 +8,8 @@ its chunks to the suite's 8 virtual devices. Outcomes are compared by
 position, each result field at ``test_agreement.py``'s tolerances
 (``chip_smoke.compare_results``, the check the card runs). Also: the
 manifest's resume, ``shard`` striping, lanes at ``device_batch=2``
-against batch 1, and the options that raise.
+against batch 1, the sub-byte transports against the JAX sweep, and the
+options that raise.
 """
 
 from __future__ import annotations
@@ -135,15 +136,41 @@ def test_on_error_raise_aborts_on_the_undecodable_file(sources) -> None:
     "kwargs, error",
     [
         ({"transport": "float64"}, ValueError),
-        ({"transport": "ms6"}, NotImplementedError),
-        ({"transport": "ms5"}, NotImplementedError),
         ({"on_error": "ignore"}, ValueError),
         ({"shard": (2, 2)}, ValueError),
     ],
 )
-def test_unported_and_bad_options_raise(kwargs, error) -> None:
+def test_bad_options_raise(kwargs, error) -> None:
     with pytest.raises(error):
         tb.analyse_library([], device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("transport", ["ms6", "ms5", "int8", "int16", "float32"])
+def test_every_transport_sweeps_an_empty_list(transport) -> None:
+    assert tb.analyse_library([], device="cpu", transport=transport) == []
+
+
+@pytest.mark.parametrize("transport, bits", [("ms6", 6), ("ms5", 5)])
+def test_subbyte_sweep_matches_jax_and_counts_its_bytes(transport, bits, sources) -> None:
+    """A sub-byte sweep of the two stereo tracks at ``device_batch`` 2
+    against the JAX sweep with the same transport; it uploads the packed
+    codes (bits / 8 bytes per bucket sample), a float32 scale and base
+    per block, and an int64 n_valid, lane by lane."""
+
+    import jax
+
+    from track_analyser_tpu.parallel.batch import analyse_library
+    from track_analyser_tpu.parallel.mesh import make_mesh
+
+    picked = [sources[0], sources[3]]
+    tb.reset_upload_bytes()
+    got = tb.analyse_library(picked, device="cpu", transport=transport, device_batch=2)
+    bucket = tb.ms_bucket_length(int(LIBRARY[0][1] * SR))
+    per_lane = bucket * bits // 8 + 8 * (bucket // tb._ms_block(bits)) + 8
+    assert tb.upload_bytes() == 2 * per_lane
+    ref = analyse_library(picked, mesh=make_mesh(devices=jax.devices()[:1]), transport=transport)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        compare_results(g, r, f"port vs JAX {transport} sweep, source {i}")
 
 
 def test_sweep_counts_its_upload_bytes(sources) -> None:

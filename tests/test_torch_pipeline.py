@@ -353,16 +353,24 @@ def test_beat_grid_matches_jax() -> None:
         np.testing.assert_allclose(got[column], ref[column].to_numpy(), atol=1e-4, err_msg=column)
 
 
-def test_unported_options_raise_not_implemented() -> None:
-    stereo = _rich_stereo()[:, : 2 * SR]
+@pytest.mark.parametrize(
+    "kwargs", [{"transport": "ms6"}, {"transport": "ms5"}, {"fused": False}], ids=["ms6", "ms5", "per_module"]
+)
+def test_every_option_of_the_jax_package_runs(kwargs) -> None:
+    """The options the port once refused now run on a short clip: finite
+    fields, every stage reported in order."""
+
+    from chip_smoke import numeric_leaves
+    from track_analyser_tpu_torch.config import DEFAULT_CONFIG
+
+    stereo = _rich_stereo()[:, : 4 * SR]
     audio = AudioInput(samples=stereo.mean(axis=0), sample_rate=SR, stereo_samples=stereo)
-    for kwargs in (
-        {"transport": "ms6"},
-        {"transport": "ms5"},
-        {"fused": False},
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            analyse_track(audio, device="cpu", **kwargs)
+    stages: list = []
+    result = analyse_track(audio, device="cpu", progress_callback=stages.append, **kwargs)
+    assert stages == ["audio", "beats", "structure", "loudness", "harmonic", "features", "stereo"]
+    assert DEFAULT_CONFIG.bpm_min <= result.beat.bpm <= DEFAULT_CONFIG.bpm_max
+    for name, value in numeric_leaves(result):
+        assert np.all(np.isfinite(value)), name
 
 
 def test_cuda_device_raises_without_cuda() -> None:
@@ -378,7 +386,13 @@ def test_import_leaves_jax_out() -> None:
     code = (
         "import sys, track_analyser_tpu_torch, track_analyser_tpu_torch.parallel.batch, "
         "track_analyser_tpu_torch.ops.fused_stft, track_analyser_tpu_torch.ops.cuda_build, "
-        "track_analyser_tpu_torch.profile_track, chip_smoke; "
+        "track_analyser_tpu_torch.profile_track, track_analyser_tpu_torch.cli, "
+        "track_analyser_tpu_torch.tempo, track_analyser_tpu_torch.features, "
+        "track_analyser_tpu_torch.stereo, track_analyser_tpu_torch.harmony, "
+        "track_analyser_tpu_torch.analysis.harmonic, track_analyser_tpu_torch.models.downbeat_net, "
+        "chip_smoke; "
+        "from track_analyser_tpu_torch.analysis import beats, loudness, structure, harmonic; "
+        "harmonic.analyse_harmony; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m.startswith('track_analyser_tpu.') or m == 'track_analyser_tpu' "
         "for m in sys.modules), 'JAX package imported'"

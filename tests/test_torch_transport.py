@@ -1,11 +1,15 @@
 """The port's host transports against the JAX package's, on the CPU.
 
-The quantisers, the host-exact stereo values and the bucket arithmetic
-of the "int8", "int16" and "ms" transports are numpy copies in the port;
-each is held bit for bit against the JAX function on the same input.
-The "ms" payload must equal the JAX package's chunked parts
-concatenated (its zero chunks materialised), and the device-side
-decoders must reproduce the JAX decoders exactly.
+The quantisers, the packers, the host-exact stereo values and the bucket
+arithmetic of the "int8", "int16", "ms", "ms6" and "ms5" transports are
+numpy copies in the port; each is held bit for bit against the JAX
+function on the same input (and the sub-byte quantisers also against the
+JAX package's native C++ ones). The mid-only payloads must equal the JAX
+package's chunked parts concatenated (its zero chunks materialised), and
+the device-side decoders must reproduce the JAX decoders exactly: the
+sub-byte decode ``base + int32-cumsum(codes) * step`` is a multiply and
+an add on both sides (XLA's CPU lowering does not contract it into a
+fused multiply-add here), so it is held bit for bit too.
 """
 
 from __future__ import annotations
@@ -169,10 +173,154 @@ def test_host_stereo_stats_overwrite_matches_jax() -> None:
         np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
 
 
-def test_unported_transports_raise_and_name_the_roadmap() -> None:
-    audio, _ = _audio_pair(2 * SR, True)
+@pytest.mark.parametrize("bits", [6, 5])
+@pytest.mark.parametrize(
+    "start, end, carry", [(0, 3 * BLOCK, 0.0), (BLOCK, 3 * BLOCK, 0.25), (0, 4 * BLOCK, 0.0)]
+)
+def test_subbyte_quantisers_are_bit_exact(bits, start, end, carry) -> None:
+    """ms6 / ms5 against the JAX numpy quantisers: packed codes, scales,
+    bases, stereo sums and the carry, over ranges inside and past the
+    signal (the tail quantises zeros)."""
+
+    x = _signal(3 * BLOCK - 777, 2, 2)
+    n = x.shape[1]
+    port, ref = _SUBBYTE[bits]
+    got = port(x, n, start, end, carry)
+    want = ref(x, n, start, end, carry)
+    for g, r in zip(got[:4], want[:4]):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+    assert got[4] == want[4]
+    assert got[0].size == (end - start) * bits // 8
+
+
+@pytest.mark.parametrize("bits", [6, 5])
+def test_subbyte_delta_coding_is_bit_exact(bits) -> None:
+    """A smooth signal, where the delta coding (negative scale) wins in
+    most blocks: its error-feedback chain, op for op."""
+
+    t = np.arange(2 * BLOCK) / SR
+    x = np.stack([0.6 * np.sin(2 * np.pi * 55.0 * t), 0.5 * np.sin(2 * np.pi * 55.0 * t + 0.1)]).astype(np.float32)
+    got = _SUBBYTE[bits][0](x, x.shape[1], 0, 2 * BLOCK)
+    want = _SUBBYTE[bits][1](x, x.shape[1], 0, 2 * BLOCK)
+    for g, r in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, r)
+    assert (got[1] < 0).mean() > 0.5
+
+
+_SUBBYTE = {6: (tb._quantise_mid6_range, jb._quantise_mid6_range), 5: (tb._quantise_mid5_range, jb._quantise_mid5_range)}
+
+
+@pytest.mark.parametrize("bits", [6, 5])
+def test_subbyte_quantisers_match_the_native_ones(bits) -> None:
+    from track_analyser_tpu.native import binding as native_binding
+
+    x = _signal(2 * BLOCK + 4_321, 2, 9)
+    native = (native_binding.quantise_mid6 if bits == 6 else native_binding.quantise_mid5)(
+        x, 3 * BLOCK, tb._ms_block(bits)
+    )
+    if native is None:
+        pytest.skip("the JAX package's native quantiser is not built here")
+    got = _SUBBYTE[bits][0](x, x.shape[1], 0, 3 * BLOCK)
+    for g, r in zip(got[:3], native[:3]):
+        np.testing.assert_array_equal(g, r)
+    np.testing.assert_allclose(got[3], native[3], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("bits", [6, 5])
+def test_packers_are_bit_exact_and_unpack_back(bits) -> None:
+    qmax, bias = (31, 32) if bits == 6 else (15, 16)
+    codes = np.random.default_rng(bits).integers(-qmax, qmax + 1, size=8 * 1_024) + bias
+    codes = codes.astype(np.uint8)
+    pack_port, pack_jax = (tb._pack_i6, jb._pack_i6) if bits == 6 else (tb._pack_i5, jb._pack_i5)
+    packed = pack_port(codes)
+    np.testing.assert_array_equal(packed, pack_jax(codes))
+    assert packed.size == codes.size * bits // 8
+    unpacked = tb._unpack_codes(torch.from_numpy(packed)[None], bits)[0].numpy()
+    np.testing.assert_array_equal(unpacked, codes.astype(np.int32) - bias)
+
+
+@pytest.mark.parametrize("bits", [6, 5])
+def test_subbyte_device_decoders_match_jax(bits) -> None:
+    x = _signal(3 * BLOCK, 2, 10)
+    packed, scales, bases, _stats, _carry = _SUBBYTE[bits][0](x, x.shape[1], 0, 3 * BLOCK)
+    got = tb._dequantise_subbyte(
+        torch.from_numpy(packed)[None], torch.from_numpy(scales)[None], torch.from_numpy(bases)[None], bits
+    )[0].numpy()
+    decode = jb._dequantise_mono_i6 if bits == 6 else jb._dequantise_mono_i5
+    ref = np.asarray(decode(jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(bases)))
+    assert got.shape == ref.shape == (3 * BLOCK,)
+    np.testing.assert_array_equal(got, ref)
+    # the decode reconstructs the mid within half a step of the coarsest block
+    mid = 0.5 * (x[0] + x[1])
+    step = np.abs(scales).max() / (31.0 if bits == 6 else 15.0)
+    assert np.abs(got - mid).max() <= step
+
+
+@pytest.mark.parametrize("quantiser", ["numpy", "native"])
+@pytest.mark.parametrize("transport, bits", [("ms6", 6), ("ms5", 5)])
+@pytest.mark.parametrize("stereo", [True, False])
+def test_subbyte_payload_equals_jax_parts(transport, bits, stereo, quantiser, monkeypatch) -> None:
+    from track_analyser_tpu.native import binding as native_binding
+
+    if quantiser == "numpy":
+        for name in ("quantise_mid", "quantise_mid6", "quantise_mid5"):
+            monkeypatch.setattr(native_binding, name, lambda *a, **k: None)
+    audio, jax_audio = _audio_pair(int(5.5 * SR), stereo, seed=5)
+    bucket = tb.ms_bucket_length(len(audio.samples))
+    (vals, scales, bases), (stats, widths), n_valid = tb._stage_payload_ms(audio, bucket, bits)
+    parts, (ref_stats, ref_widths), ref_n = jb._stage_payload_ms(jax_audio, bucket, bits)
+    chunks = [p.materialise() if isinstance(p, jb._ZeroChunk) else np.asarray(p) for p in parts[:-2]]
+    ref_vals = np.concatenate(chunks)
+    assert vals.shape == ref_vals.shape == (bucket * bits // 8,)
+    np.testing.assert_array_equal(vals, ref_vals)
+    np.testing.assert_array_equal(scales, np.asarray(parts[-2]))
+    np.testing.assert_array_equal(bases, np.asarray(parts[-1]))
+    assert scales.shape == bases.shape == (bucket // tb._ms_block(bits),)
+    if quantiser == "numpy":
+        np.testing.assert_array_equal(stats, ref_stats)
+    else:
+        np.testing.assert_allclose(stats, ref_stats, rtol=1e-12, atol=0)
+    assert n_valid == ref_n
+    if stereo:
+        np.testing.assert_array_equal(widths, ref_widths)
+    else:
+        assert widths is None and ref_widths is None
+
+
+@pytest.mark.parametrize("bits", [6, 5])
+def test_an_empty_range_gives_empty_parts(bits) -> None:
+    """The port's copy returns empty parts and the carry unchanged where
+    the JAX numpy quantiser raises IndexError (port only)."""
+
+    x = _signal(BLOCK, 2, 11)
+    packed, scales, bases, stats, carry = _SUBBYTE[bits][0](x, x.shape[1], BLOCK, BLOCK, 0.5)
+    assert packed.size == scales.size == bases.size == 0
+    assert packed.dtype == np.uint8 and scales.dtype == bases.dtype == np.float32
+    assert carry == 0.5
+    np.testing.assert_array_equal(stats, tb._stereo_stats(x[0, :0], x[1, :0], 0))
+
+
+def test_subbyte_transports_run_and_unknown_ones_raise() -> None:
+    """Every transport of the JAX package runs ("ms6" and "ms5" too, their
+    BPM within the decision margin of the float32 path); an unknown one
+    raises."""
+
+    from test_torch_pipeline import _rich_stereo
+
+    x = _rich_stereo()  # 120 BPM
+    audio = AudioInput(samples=x.mean(axis=0), sample_rate=SR, stereo_samples=x)
+    exact = tb.analyse_track_fused(audio, transport="float32", device="cpu")
+    assert exact.beat.bpm == pytest.approx(120.0, abs=0.1)
+    # test_agreement.py's decision margins for the two transports
     for transport in ("ms6", "ms5"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.analyse_track_fused(audio, transport=transport, device="cpu")
+        got = tb.analyse_track_fused(audio, transport=transport, device="cpu")
+        assert got.beat.bpm == pytest.approx(120.0, abs=0.1), transport
+        assert got.loudness.integrated_lufs == pytest.approx(exact.loudness.integrated_lufs, abs=0.15)
+        assert got.loudness.true_peak_dbfs == pytest.approx(exact.loudness.true_peak_dbfs, abs=0.1)
+        assert got.harmonic.primary_key.key == exact.harmonic.primary_key.key
+        assert got.downbeat.source == exact.downbeat.source
+        assert abs(len(got.structure.segments) - len(exact.structure.segments)) <= 1
+        assert got.stereo.correlation == pytest.approx(exact.stereo.correlation, abs=1e-4)
     with pytest.raises(ValueError, match="unknown transport"):
         tb.analyse_track_fused(audio, transport="mp3", device="cpu")

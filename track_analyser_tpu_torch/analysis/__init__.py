@@ -1,6 +1,6 @@
-"""Analysis results and host finishers (beats, structure, loudness),
-and stem separation."""
+"""Analysis modules (beats, structure, loudness, stems, harmonic shim)."""
 
 from . import beats, loudness, stems, structure
+from . import harmonic  # imported last: re-exports from ..harmony, which needs .beats
 
-__all__ = ["beats", "loudness", "stems", "structure"]
+__all__ = ["beats", "harmonic", "loudness", "stems", "structure"]

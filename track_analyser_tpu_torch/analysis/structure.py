@@ -1,10 +1,12 @@
-"""Structural segmentation from the fused graph's novelty curves (host).
+"""Structural segmentation via a combined novelty curve.
 
-The host finisher of the JAX package's ``analysis/structure.py``:
-peak picking on the combined novelty with an 8 s minimum spacing,
-refinement against energy novelty, beat snapping, and the
-percussive-ratio segment classifier. The per-module device graph is not
-ported yet.
+The JAX package's ``analysis/structure.py``: the device graph
+(``_structure_graph``: |STFT|, HPSS through the ``median31`` kernel, mel,
+MFCC self-similarity, the combined novelty; the curves themselves are
+``substrate.structure_curves``, the fused graph's own function) and the
+host finisher (peak picking on the combined novelty with an 8 s minimum
+spacing, refinement against energy novelty, beat snapping, and the
+percussive-ratio segment classifier).
 """
 
 from __future__ import annotations
@@ -13,14 +15,18 @@ from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from ..config import DEFAULT_CONFIG
+from ..device import resolve_device
 from ..ops.peaks import peak_pick
+from ..utils import AudioInput, seed_everything
 from .beats import BeatAnalysis
 
 __all__ = [
     "StructuralSegment",
     "StructureAnalysis",
+    "analyse_structure",
     "segments_from_curves",
 ]
 
@@ -41,6 +47,73 @@ class StructuralSegment:
 class StructureAnalysis:
     segments: List[StructuralSegment]
     novelty_curve: List[float]
+
+
+def _structure_graph(
+    y: torch.Tensor, n_valid: int, *, sr: int, frame_length: int, hop_length: int
+) -> tuple:
+    """Device portion for one bucket-padded signal ``y`` (n,) with
+    ``n_valid`` true samples: (novelty, normalised energy novelty,
+    percussive column sums, harmonic column sums), each (T,) and zero
+    beyond the valid frames. HPSS launches ``median31`` once per axis."""
+
+    from ..ops.mel import mel_filterbank, melspectrogram_from_power
+    from ..ops.onset import onset_strength_from_mel
+    from ..ops.stft import magnitude
+    from ..substrate import structure_curves
+
+    mag = magnitude(y[None], frame_length, hop_length, power=1.0)  # (1, bins, T)
+    mel_power = melspectrogram_from_power(mag * mag, mel_filterbank(sr, frame_length, DEFAULT_CONFIG.n_mels))
+    f_valid = torch.tensor([1 + n_valid // hop_length], device=y.device)
+    fmask = torch.arange(mag.shape[-1], device=y.device) < f_valid[:, None]
+    env = onset_strength_from_mel(mel_power, n_fft=frame_length, hop_length=hop_length)
+    env = torch.where(fmask, env, torch.zeros((), dtype=env.dtype, device=y.device))
+    curves = structure_curves(mag, mel_power, env, f_valid, sr=sr, hop=hop_length)
+    return tuple(c[0] for c in curves)
+
+
+def analyse_structure(
+    audio: AudioInput,
+    beat_result: BeatAnalysis,
+    *,
+    seed: int,
+    frame_length: int = 2048,
+    hop_length: int = 512,
+    device="cuda",
+) -> StructureAnalysis:
+    """Detect structural boundaries using the combined novelty heuristic,
+    the graph on ``device``."""
+
+    if not isinstance(audio, AudioInput):
+        raise TypeError("analyse_structure expects an AudioInput instance")
+    seed_everything(seed)
+
+    from ..substrate import pad_to_bucket
+
+    dev = resolve_device(device)
+    y = np.asarray(audio.samples, dtype=np.float32)
+    padded, f_valid = pad_to_bucket(y, hop=hop_length)
+    with torch.inference_mode():
+        outs = _structure_graph(
+            torch.from_numpy(padded).to(dev),
+            y.size,
+            sr=audio.sample_rate,
+            frame_length=frame_length,
+            hop_length=hop_length,
+        )
+        novelty, energy_novelty, perc_col, harm_col = (
+            o.cpu().numpy().astype(np.float64)[:f_valid] for o in outs
+        )
+    return segments_from_curves(
+        novelty,
+        energy_novelty,
+        perc_col,
+        harm_col,
+        beat_result,
+        sample_rate=audio.sample_rate,
+        hop_length=hop_length,
+        duration=float(audio.duration),
+    )
 
 
 def segments_from_curves(

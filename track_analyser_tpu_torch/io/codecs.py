@@ -231,10 +231,15 @@ def decode_file(path: str | Path) -> Tuple[np.ndarray, int, Dict[str, object]]:
             head = fh.read(12)
     except OSError as exc:
         raise AudioDecodeError(f"Could not decode audio file: {file_path}") from exc
-    if head[0:4] in (b"RIFF", b"RIFX"):
-        return decode_wav(file_path)
-    if head[0:4] == b"FORM":
-        return _decode_aiff(file_path)
+    decoder = {b"RIFF": decode_wav, b"RIFX": decode_wav, b"FORM": _decode_aiff}.get(head[0:4])
+    if decoder is not None:
+        try:
+            return decoder(file_path)
+        except (AudioDecodeError, OSError, struct.error, ValueError, IndexError) as exc:
+            # a malformed header may fail a parser before its own checks
+            # (struct.error, a ragged frombuffer); the decoder's error is
+            # the cause, the message the JAX package's
+            raise AudioDecodeError(f"Could not decode audio file: {file_path}") from exc
     raise AudioDecodeError(
         f"Could not decode audio file: {file_path}: the PyTorch port decodes WAV "
         "and AIFF only; FLAC, MP3, Ogg and the ffmpeg tier are not ported yet "

@@ -1,11 +1,17 @@
-"""Downbeat decoding over accent curves (host, numpy).
+"""Downbeat tracking: accent curves on the device, decoding on the host.
 
 A meter/phase decoder over {3, 4} beats per bar: per-beat accent
 evidence (linear mel energy, low-band energy, spectral flux, the
-harmonic-change cue and, when the TCN ran, its P(downbeat)) is decoded
-by a bar-position Viterbi per meter. The code is the JAX package's
-``models/downbeat.py`` host half; the per-module accent graph is not
-ported yet.
+harmonic-change cue and, when the activation net ran, its P(downbeat))
+is decoded by a bar-position Viterbi per meter. The fused path reads
+the accent curves from the fused graph; ``track_downbeats`` (the
+per-module path) computes them with ``_accent_graph`` on the caller's
+device, as the JAX package's ``models/downbeat.py`` does.
+
+The ladder: fewer than 4 beats gives None (the caller falls back to the
+every-4th-beat heuristic), and without a checkpoint the accent features
+decide alone. Any other error propagates; the JAX package swallows
+every exception at these steps.
 
 The trained checkpoints are the JAX package's bundled files, read from
 ``track_analyser_tpu/models/checkpoints`` as data (nothing is imported
@@ -22,10 +28,12 @@ from pathlib import Path
 from typing import List
 
 import numpy as np
+import torch
 
-__all__ = ["decode_from_accent", "DownbeatTrackingResult"]
+__all__ = ["available", "track_downbeats", "decode_from_accent", "DownbeatTrackingResult"]
 
 _HOP = 512
+_N_FFT = 2048
 
 
 @dataclass(slots=True)
@@ -33,6 +41,10 @@ class DownbeatTrackingResult:
     downbeat_times: List[float]
     beat_positions: List[int]
     source: str
+
+
+def available() -> bool:
+    return True
 
 
 _CKPT_DIR = Path(__file__).resolve().parents[2] / "track_analyser_tpu" / "models" / "checkpoints"
@@ -66,6 +78,78 @@ def _net_params():
             warnings.warn(f"downbeat checkpoint {path} not loaded: {exc}")
             _net_params_cache[path] = None
     return _net_params_cache[path]
+
+
+def _accent_graph(y: torch.Tensor, *, sr: int) -> tuple:
+    """Per-frame accent curves of ``y`` (a tensor on the device): linear
+    mel energy, low-band (< 150 Hz) energy and mean positive dB flux."""
+
+    from ..ops.mel import mel_filterbank, melspectrogram_from_power, power_to_db
+    from ..ops.stft import magnitude
+
+    power = magnitude(y, _N_FFT, _HOP, power=2.0)
+    mel_power = melspectrogram_from_power(power, mel_filterbank(sr, _N_FFT, 128))
+    energy = torch.sqrt(mel_power.sum(dim=-2) + 1e-12)
+    n_low = max(2, int(150.0 * _N_FFT / sr))
+    low = torch.sqrt(power[..., :n_low, :].sum(dim=-2) + 1e-12)
+    mel_db = power_to_db(mel_power, dims=(-2, -1))
+    flux = torch.clamp_min(mel_db[..., 1:] - mel_db[..., :-1], 0.0).mean(dim=-2)
+    flux = torch.nn.functional.pad(flux, (1, 0))
+    return energy, low, flux
+
+
+def _accent_curves(samples: np.ndarray, sample_rate: int, device) -> tuple:
+    """(energy, low, flux) float64 of ``samples`` padded to its bucket and
+    trimmed to the valid frames (the dB floor of the flux sits below the
+    global maximum, which quiet padding cannot raise)."""
+
+    from ..device import resolve_device
+    from ..substrate import pad_to_bucket
+
+    dev = resolve_device(device)
+    padded, f_valid = pad_to_bucket(np.asarray(samples, dtype=np.float32), hop=_HOP)
+    with torch.inference_mode():
+        curves = _accent_graph(torch.from_numpy(padded).to(dev), sr=sample_rate)
+    return tuple(c.cpu().numpy().astype(np.float64)[:f_valid] for c in curves)
+
+
+def track_downbeats(
+    samples: np.ndarray,
+    sample_rate: int,
+    beat_times: "np.ndarray | List[float]",
+    *,
+    seed: int = 0,
+    device="cuda",
+) -> "DownbeatTrackingResult | None":
+    """Pick the downbeat phase/meter that maximises accent contrast, on
+    the accent curves, the net's P(downbeat) (when a checkpoint is
+    bundled or named) and the harmonic-change cue; None for fewer than 4
+    beats."""
+
+    del seed  # deterministic model, kept for interface parity
+    beat_times = np.asarray(beat_times, dtype=float)
+    if beat_times.size < 4:
+        return None
+
+    from ..harmony import _compute_chromas
+    from . import downbeat_net
+
+    y = np.asarray(samples, dtype=np.float32)
+    energy, low, flux = _accent_curves(y, sample_rate, device)
+    params = _net_params()
+    net_prob = None
+    if params is not None:
+        net_prob = downbeat_net.downbeat_activation(params, y, sample_rate, device=device)
+    chroma, _ = _compute_chromas(y, sample_rate, device=device)
+    return decode_from_accent(
+        energy,
+        low,
+        beat_times,
+        sample_rate,
+        flux=flux,
+        net_prob=net_prob,
+        chroma=chroma,
+    )
 
 
 def _viterbi_positions(accent: np.ndarray, meter: int) -> tuple[float, np.ndarray]:

@@ -17,11 +17,14 @@ axis).
   track's artefacts.
 
 Transports (host -> device payloads), numpy copies of the reference's
-quantisers: "float32", "int16", "int8" (blockwise int8 per channel) and
+quantisers: "float32", "int16", "int8" (blockwise int8 per channel),
 "ms" (the mid channel only, as blockwise int8, with every side-derived
-output computed exactly on the host). The reference's relay machinery
-(chunked parts, zero-chunk markers, device-side growth, executable
-sharing) is not ported: the port uploads one buffer per payload part.
+output computed exactly on the host), and "ms6" / "ms5" (the mid
+channel as packed 6- or 5-bit codes, per block raw or delta-coded, in
+the reference's byte format). The reference's relay machinery (chunked
+parts, zero-chunk markers, device-side growth, executable sharing) is
+not ported: the port uploads one buffer per payload part, the mid
+payload covering the whole bucket.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +59,9 @@ from ..stereo import StereoAnalysis, StereoWidthBands
 from ..substrate import bucket_length, full_track_graph, pack_outputs, unpack_outputs
 from ..utils import AudioInput, coerce_audio, deterministic_rng
 
+if TYPE_CHECKING:
+    from ..report import ReportRequest
+
 __all__ = [
     "analyse_track_fused",
     "analyse_library",
@@ -69,13 +75,9 @@ __all__ = [
     "reset_stage_seconds",
 ]
 
-_TRANSPORTS = ("float32", "int16", "int8", "ms")
-# Transports that exist in the JAX package and are still to be ported,
-# with the ROADMAP.md item that brings each.
-_UNPORTED_TRANSPORTS = {
-    "ms6": "ROADMAP.md Queue 1 item 6 (the remaining transports)",
-    "ms5": "ROADMAP.md Queue 1 item 6 (the remaining transports)",
-}
+_TRANSPORTS = ("float32", "int16", "int8", "ms", "ms6", "ms5")
+# Bits per mid code of the mid-only transports.
+_MS_BITS = {"ms": 8, "ms6": 6, "ms5": 5}
 
 
 @dataclass(slots=True)
@@ -410,6 +412,54 @@ def _dequantise_i8(vals: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return (blocks * (scales[..., None] / 127.0)).reshape(vals.shape)
 
 
+def _unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., n) int32 codes, bias removed, from (..., n * bits / 8) packed
+    bytes: 6-bit codes four in three bytes, 5-bit codes eight in five."""
+
+    if bits == 6:
+        b = packed.reshape(packed.shape[:-1] + (-1, 3)).to(torch.int32)
+        codes = [
+            b[..., 0] >> 2,
+            ((b[..., 0] & 3) << 4) | (b[..., 1] >> 4),
+            ((b[..., 1] & 15) << 2) | (b[..., 2] >> 6),
+            b[..., 2] & 63,
+        ]
+        bias = 32
+    else:
+        b = packed.reshape(packed.shape[:-1] + (-1, 5)).to(torch.int32)
+        codes = [
+            b[..., 0] >> 3,
+            ((b[..., 0] & 7) << 2) | (b[..., 1] >> 6),
+            (b[..., 1] >> 1) & 31,
+            ((b[..., 1] & 1) << 4) | (b[..., 2] >> 4),
+            ((b[..., 2] & 15) << 1) | (b[..., 3] >> 7),
+            (b[..., 3] >> 2) & 31,
+            ((b[..., 3] & 3) << 3) | (b[..., 4] >> 5),
+            b[..., 4] & 31,
+        ]
+        bias = 16
+    stacked = torch.stack(codes, dim=-1)
+    return stacked.reshape(packed.shape[:-1] + (-1,)) - bias
+
+
+def _dequantise_subbyte(
+    packed: torch.Tensor, scales: torch.Tensor, bases: torch.Tensor, bits: int
+) -> torch.Tensor:
+    """Inverse of the ms6 / ms5 quantiser on (..., bytes) packed codes and
+    (..., blocks) scales and bases: per block, the scale's sign picks raw
+    (code * step) or delta (base + int32-cumsum(codes) * step), step =
+    |scale| / qmax. The multiply and the add are two operations, never a
+    fused multiply-add."""
+
+    qmax = 31.0 if bits == 6 else 15.0
+    codes = _unpack_codes(packed, bits)
+    cb = codes.reshape(codes.shape[:-1] + (scales.shape[-1], -1))
+    step = (torch.abs(scales) / qmax)[..., None]
+    raw = cb.to(torch.float32) * step
+    delta = bases[..., None] + torch.cumsum(cb, dim=-1, dtype=torch.int32).to(torch.float32) * step
+    return torch.where((scales < 0)[..., None], delta, raw).reshape(codes.shape)
+
+
 def _stage_payload_i16(audio: AudioInput, n_bucket: int) -> tuple[tuple, int]:
     """((2, n_bucket) int16,) payload + n_valid."""
 
@@ -552,29 +602,209 @@ def _quantise_mid_range(
     return mid_i8[0], mid_scales[0], stats
 
 
-def _stage_payload_ms(audio: AudioInput, n_bucket: int) -> tuple[tuple, tuple, int]:
-    """((mid (n_bucket,) int8, scales (n_bucket/_I8_BLOCK,) float32),
-    (stats (8,), widths (3,) or None), n_valid) for the "ms" transport.
+def _pack_i6(codes: np.ndarray) -> np.ndarray:
+    """Pack biased 6-bit codes (uint8 in [1, 63]) four into three bytes,
+    the reference's byte format (``_dequantise_mono_i6`` unpacks it)."""
+
+    g = codes.reshape(-1, 4)
+    out = np.empty((g.shape[0], 3), dtype=np.uint8)
+    out[:, 0] = (g[:, 0] << 2) | (g[:, 1] >> 4)
+    out[:, 1] = ((g[:, 1] & 15) << 4) | (g[:, 2] >> 2)
+    out[:, 2] = ((g[:, 2] & 3) << 6) | g[:, 3]
+    return out.reshape(-1)
+
+
+def _pack_i5(codes: np.ndarray) -> np.ndarray:
+    """Pack biased 5-bit codes (uint8 in [1, 31]) eight into five bytes,
+    the reference's byte format (``_dequantise_mono_i5`` unpacks it)."""
+
+    g = codes.reshape(-1, 8).astype(np.uint16)
+    out = np.empty((g.shape[0], 5), dtype=np.uint8)
+    out[:, 0] = (g[:, 0] << 3) | (g[:, 1] >> 2)
+    out[:, 1] = ((g[:, 1] & 3) << 6) | (g[:, 2] << 1) | (g[:, 3] >> 4)
+    out[:, 2] = ((g[:, 3] & 15) << 4) | (g[:, 4] >> 1)
+    out[:, 3] = ((g[:, 4] & 1) << 7) | (g[:, 5] << 2) | (g[:, 6] >> 3)
+    out[:, 4] = ((g[:, 6] & 7) << 5) | g[:, 7]
+    return out.reshape(-1)
+
+
+def _quantise_mid_subbyte_range(
+    channels: np.ndarray,
+    n_in: int,
+    start: int,
+    end: int,
+    carry: float,
+    *,
+    qmax: int,
+    block: int,
+    bias: int,
+    shape: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
+    """The sub-byte mid quantiser (ms6 / ms5) for source samples
+    [start, end), the reference's numpy quantiser op for op in float32.
+
+    Per block, the better of two codings in [-qmax, qmax]: raw (code =
+    x / step, step = peak / qmax) and delta with error feedback (each
+    code steps the running reconstruction towards the next sample, step
+    = max |first difference| / qmax); delta wins when its worst error is
+    under half the raw one. The mode rides the scale's sign (negative:
+    delta). ``bases`` holds the true padded-mid sample before each block
+    (``carry`` before the first), so blocks decode independently and the
+    delta chains of all blocks advance in lock-step, one sample per
+    iteration. ``shape`` > 0 noise-shapes the delta target (x[i] -
+    shape * e[i-1]). Returns (biased codes (L,) uint8, scales (L/block,),
+    bases (L/block,), stats (8,) float64, carry out); an empty range
+    gives empty parts (the reference raises IndexError there)."""
+
+    blocklen = end - start
+    valid = int(max(0, min(n_in - start, blocklen)))
+    l = channels[0, start : start + valid]
+    r = channels[-1, start : start + valid]
+    stats = _stereo_stats(l, r, valid)
+
+    mid = np.zeros(blocklen, dtype=np.float32)
+    np.multiply(np.add(l, r, dtype=np.float32), np.float32(0.5), out=mid[:valid])
+    blocks = mid.reshape(-1, block)
+    nb = blocks.shape[0]
+    if nb == 0:
+        empty = np.zeros(0, dtype=np.float32)
+        return np.zeros(0, dtype=np.uint8), empty, empty.copy(), stats, float(carry)
+    fq = np.float32(float(qmax))
+
+    prevs = np.empty(nb, np.float32)
+    prevs[0] = np.float32(carry)
+    if nb > 1:
+        prevs[1:] = blocks[:-1, -1]
+
+    peak = np.abs(blocks).max(axis=1).astype(np.float32)
+    # max |first difference| over the padded row with the base prepended
+    dpk = (
+        np.abs(np.diff(blocks, axis=1, prepend=prevs[:, None].astype(np.float32)))
+        .max(axis=1)
+        .astype(np.float32)
+    )
+
+    # raw candidate
+    peak_safe = np.where(peak > 0, peak, np.float32(1.0))
+    rstep = peak_safe / fq
+    rinv = fq / peak_safe
+    rcodes = np.rint(np.clip(blocks * rinv[:, None], -fq, fq)).astype(np.float32)
+    rerr = np.abs(rcodes * rstep[:, None] - blocks).max(axis=1).astype(np.float32)
+
+    # delta candidate: every block's error-feedback chain in lock-step
+    run = dpk > 0
+    dpk_safe = np.where(run, dpk, np.float32(1.0))
+    dstep = dpk_safe / fq
+    dinv = fq / dpk_safe
+    fshape = np.float32(shape)
+    dcodes = np.empty((nb, block), np.float32)
+    acc = np.zeros(nb, np.int32)
+    prev = prevs.copy()
+    e_prev = np.zeros(nb, np.float32)
+    derr = np.zeros(nb, np.float32)
+    for i in range(block):
+        x = blocks[:, i]
+        tgt = x - fshape * e_prev
+        v = (tgt - prev) * dinv
+        c = np.rint(np.clip(v, -fq, fq))
+        dcodes[:, i] = c
+        acc += c.astype(np.int32)
+        prev = prevs + acc.astype(np.float32) * dstep
+        e_prev = prev - x
+        np.maximum(derr, np.abs(e_prev), out=derr)
+    take_delta = run & (derr < np.float32(0.5) * rerr)
+
+    bases = prevs
+    scales = np.where(take_delta, -dpk, peak).astype(np.float32)
+    sel = np.where(take_delta[:, None], dcodes, rcodes)
+    codes_all = (sel + np.float32(float(bias))).astype(np.uint8)
+    carry_out = float(blocks[-1, -1])
+    return codes_all.reshape(-1), scales, bases, stats, carry_out
+
+
+def _quantise_mid6_range(
+    channels: np.ndarray, n_in: int, start: int, end: int, carry: float = 0.0
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
+    """ms6: 6-bit codes on the _I8_BLOCK scale grid, packed four into
+    three bytes (0.75 B per stereo sample pair)."""
+
+    codes, scales, bases, stats, carry_out = _quantise_mid_subbyte_range(
+        channels, n_in, start, end, carry, qmax=31, block=_I8_BLOCK, bias=32
+    )
+    return _pack_i6(codes), scales, bases, stats, carry_out
+
+
+def _quantise_mid5_range(
+    channels: np.ndarray, n_in: int, start: int, end: int, carry: float = 0.0
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
+    """ms5: noise-shaped 5-bit codes on the finer _MS5_BLOCK scale grid,
+    packed eight into five bytes (0.625 B per stereo sample pair)."""
+
+    codes, scales, bases, stats, carry_out = _quantise_mid_subbyte_range(
+        channels, n_in, start, end, carry,
+        qmax=15, block=_MS5_BLOCK, bias=16, shape=0.5,
+    )
+    return _pack_i5(codes), scales, bases, stats, carry_out
+
+
+# ms5 quantises on a finer scale grid than _I8_BLOCK: at 5 bits a quiet
+# click under a loud block peak's step, and noise-floor steps at a slow
+# block rate aliasing into the tempo range, both move the beat grid at
+# coarser blocks (the reference's measurements). 8 B of scale and base
+# per 1 024 samples.
+_MS5_BLOCK = 1024
+
+
+def _ms_block(bits: int) -> int:
+    return _MS5_BLOCK if bits == 5 else _I8_BLOCK
+
+
+def _ms_payload_bytes(s: int, e: int, bits: int) -> "tuple[int, int]":
+    """Byte range of the packed payload covering sample range [s, e)."""
+
+    if bits == 6:
+        return 3 * s // 4, 3 * e // 4
+    if bits == 5:
+        return 5 * s // 8, 5 * e // 8
+    return s, e
+
+
+def _stage_payload_ms(audio: AudioInput, n_bucket: int, bits: int = 8) -> tuple[tuple, tuple, int]:
+    """(payload parts, (stats (8,), widths (3,) or None), n_valid) for
+    the mid-only transports: "ms" (``bits=8``: int8 values (n_bucket,),
+    scales (n_bucket/_I8_BLOCK,)), "ms6" and "ms5" (``bits=6`` / ``5``:
+    packed codes (3/4 or 5/8 of n_bucket bytes), scales and bases, one
+    each per block of ``_ms_block(bits)``).
 
     The quantiser covers ``_ms_quantise_len`` samples; the rest of the
-    bucket is zero values with zero scales, which decode to silence (the
-    reference ships those as zero chunks). ``widths`` is None for a mono
-    source, whose device widths are exact."""
+    bucket is zero bytes with zero scales and bases, which decode to
+    silence (the reference ships those as zero chunks). ``widths`` is
+    None for a mono source, whose device widths are exact."""
 
     n = len(audio.samples)
     channels = _source_channels(audio)
     if channels.ndim == 1:
         channels = channels[None, :]
     qlen = _ms_quantise_len(n, n_bucket)
-    mid_q, mid_scales_q, stats = _quantise_mid_range(channels, n, 0, qlen)
-    mid = np.zeros(n_bucket, dtype=np.int8)
-    mid[:qlen] = mid_q
-    mid_scales = np.zeros(n_bucket // _I8_BLOCK, dtype=np.float32)
-    mid_scales[: mid_scales_q.shape[0]] = mid_scales_q
+    if bits == 8:
+        vals_q, scales_q, stats = _quantise_mid_range(channels, n, 0, qlen)
+        bases_q = None
+    else:
+        quantise = _quantise_mid6_range if bits == 6 else _quantise_mid5_range
+        vals_q, scales_q, bases_q, stats, _carry = quantise(channels, n, 0, qlen)
+    vals = np.zeros(_ms_payload_bytes(0, n_bucket, bits)[1], dtype=vals_q.dtype)
+    vals[: vals_q.shape[0]] = vals_q
+    n_blocks = n_bucket // _ms_block(bits)
+    parts = [vals]
+    for q in (scales_q, bases_q):
+        if q is not None:
+            full = np.zeros(n_blocks, dtype=np.float32)
+            full[: q.shape[0]] = q
+            parts.append(full)
     widths = None
     if audio.stereo_samples is not None:
         widths = _host_stereo_widths(channels, audio.sample_rate)
-    return (mid, mid_scales), (stats, widths), n
+    return tuple(parts), (stats, widths), n
 
 
 def _apply_host_stereo_stats(
@@ -602,27 +832,23 @@ def _apply_host_stereo_stats(
 
 
 def _check_transport(transport: str) -> None:
-    if transport in _UNPORTED_TRANSPORTS:
-        raise NotImplementedError(
-            f"transport {transport!r} is not ported yet: {_UNPORTED_TRANSPORTS[transport]}"
-        )
     if transport not in _TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}")
 
 
 def _bucket_for(transport: str) -> Callable[[int], int]:
-    """The reference's bucket for each transport: the tier grid for "ms",
-    geometric buckets otherwise."""
+    """The reference's bucket for each transport: the tier grid for the
+    mid-only transports, geometric buckets otherwise."""
 
-    return ms_bucket_length if transport == "ms" else bucket_length
+    return ms_bucket_length if transport in _MS_BITS else bucket_length
 
 
 def _stage_track(audio: AudioInput, transport: str, n_bucket: int) -> tuple[tuple, "tuple | None", int]:
     """(payload parts, host-exact stereo values or None, n_valid) of one
     track for ``transport``."""
 
-    if transport == "ms":
-        return _stage_payload_ms(audio, n_bucket)
+    if transport in _MS_BITS:
+        return _stage_payload_ms(audio, n_bucket, _MS_BITS[transport])
     if transport == "int8":
         parts, n_valid = _stage_payload_i8(audio, n_bucket)
     elif transport == "int16":
@@ -637,25 +863,21 @@ def _stage_track(audio: AudioInput, transport: str, n_bucket: int) -> tuple[tupl
 # The batched graph and its device plumbing.
 # ---------------------------------------------------------------------------
 
-_tcn_cache: dict = {}
-
-
-def _bundled_net(device: torch.device) -> "downbeat_net.DownbeatTCN | None":
-    """The bundled downbeat TCN on ``device``, or None when disabled.
+def _bundled_net(device: torch.device) -> "torch.nn.Module | None":
+    """The bundled downbeat net on ``device``, or None when disabled.
 
     On by default when the bundled checkpoint is a TCN; a GRU checkpoint
-    is refused (its serial scan is too slow for the fused path, and the
-    port has no GRU). TRACK_ANALYSER_TPU_NET_DOWNBEATS=0 disables."""
+    is left out (its serial scan is too slow for the fused path; it
+    serves the per-module path) unless TRACK_ANALYSER_TPU_NET_DOWNBEATS=1
+    forces it in. TRACK_ANALYSER_TPU_NET_DOWNBEATS=0 disables."""
 
-    if os.environ.get("TRACK_ANALYSER_TPU_NET_DOWNBEATS") == "0":
+    gate = os.environ.get("TRACK_ANALYSER_TPU_NET_DOWNBEATS")
+    if gate == "0":
         return None
     params = downbeat_model._net_params()
-    if params is None or "tcn0_w" not in params:
+    if params is None or ("tcn0_w" not in params and gate != "1"):
         return None
-    key = (id(params), str(device))
-    if key not in _tcn_cache:
-        _tcn_cache[key] = downbeat_net.params_from_jax(params).to(device)
-    return _tcn_cache[key]
+    return downbeat_net.model_for(params, device)
 
 
 def _core_graph(stereo: torch.Tensor, n_valid: torch.Tensor, *, sr: int) -> tuple:
@@ -673,7 +895,8 @@ def _core_graph(stereo: torch.Tensor, n_valid: torch.Tensor, *, sr: int) -> tupl
 
 def _decode_payload(transport: str, parts: tuple) -> torch.Tensor:
     """Device-side decode of a batch's payload parts to (B, 2, n) float32.
-    "ms" feeds [y, y]: the side outputs it cannot see come from the host."""
+    The mid-only transports feed [y, y]: the side outputs they cannot see
+    come from the host."""
 
     if transport == "float32":
         return parts[0]
@@ -681,7 +904,10 @@ def _decode_payload(transport: str, parts: tuple) -> torch.Tensor:
         return parts[0].to(torch.float32) / 32768.0
     if transport == "int8":
         return _dequantise_i8(parts[0], parts[1])
-    y = _dequantise_i8(parts[0], parts[1])  # the mid channel, (B, n)
+    if transport == "ms":
+        y = _dequantise_i8(parts[0], parts[1])  # the mid channel, (B, n)
+    else:
+        y = _dequantise_subbyte(parts[0], parts[1], parts[2], _MS_BITS[transport])
     return torch.stack([y, y], dim=1)
 
 
@@ -791,10 +1017,14 @@ def analyse_track_fused(
         stereo sample pair); the time-domain stereo scalars come from
         float64 host sums and the per-band widths from a float64 host
         STFT with the device's band formula. Pads to ``ms_bucket_length``.
+      - "ms6": as "ms", the mid as 6-bit codes, per 65 536-sample block
+        raw or delta-coded with error feedback, packed four into three
+        bytes (0.75 B per stereo sample pair).
+      - "ms5": noise-shaped 5-bit codes on 1 024-sample blocks, packed
+        eight into five bytes (0.625 B per stereo sample pair).
       - "int8": blockwise-scaled int8 per channel.
       - "int16": -96 dBFS quantisation (lossless for PCM16 sources).
       - "float32": the exact samples.
-    "ms6" and "ms5" are not ported yet and raise NotImplementedError.
 
     ``device_batch`` is accepted for the JAX package's signature, where
     it picks the sweep executable to share; the port compiles no
@@ -810,7 +1040,7 @@ def analyse_track_fused(
     audio = source if isinstance(source, AudioInput) else coerce_audio(source)
     n = len(audio.samples)
     n_bucket = _bucket_for(transport)(n) if bucket else n
-    if transport in ("ms", "int8") and n_bucket % _I8_BLOCK:
+    if (transport in _MS_BITS or transport == "int8") and n_bucket % _I8_BLOCK:
         # Blockwise payloads reshape into _I8_BLOCK blocks; bucket=False
         # lengths round up (the padding is masked out).
         n_bucket = -(-n_bucket // _I8_BLOCK) * _I8_BLOCK
@@ -847,6 +1077,7 @@ def analyse_library(
     prewarm: Optional[bool] = None,
     device_batch: int = 1,
     shard: Optional[tuple] = None,
+    report_request: "Optional[ReportRequest]" = None,
 ) -> "List[TrackAnalysisResult | TrackFailure | SkippedTrack]":
     """Analyse a library of tracks on one device through a bounded
     streaming pipeline.
@@ -873,9 +1104,9 @@ def analyse_library(
     ``mesh``; several cards are not ported yet.
 
     ``transport``: "ms" (default: mid-only blockwise int8, host-exact
-    stereo values; mono and stereo tracks share chunks), "int8",
-    "int16" or "float32" (exact samples). "ms6"/"ms5" raise
-    NotImplementedError.
+    stereo values; mono and stereo tracks share chunks), "ms6" / "ms5"
+    (the mid as packed 6- / 5-bit codes), "int8", "int16" or "float32"
+    (exact samples).
 
     ``manifest_path``: a JSONL manifest makes sweeps resumable: sources it
     lists as done are skipped; failed tracks are recorded with an
@@ -899,7 +1130,9 @@ def analyse_library(
     ``output_dir``: render every track's artefacts
     (``rendering.outputs.render_all``) into a subdirectory of its own,
     named by the source file's stem (``track_<index>`` for a source
-    without a path). Plots need matplotlib.
+    without a path). Plots need matplotlib. ``report_request`` (the
+    port's own option) picks the artefacts, e.g.
+    ``ReportRequest(include_plots=False)``; None renders them all.
 
     ``stage_seconds()`` sums each stage's time over the sweep.
     """
@@ -994,7 +1227,9 @@ def analyse_library(
 
                 name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
                 with render_lock:
-                    outputs_module.render_all(result, Path(output_dir) / name, device=dev)
+                    outputs_module.render_all(
+                        result, Path(output_dir) / name, report_request=report_request, device=dev
+                    )
             _record(src, {"bpm": result.beat.bpm, "key": result.harmonic.primary_key.key})
         _count_stage("finish", time.perf_counter() - t0)
 

@@ -41,7 +41,7 @@ from .ops.resample import oversampled_peak
 from .ops.spectral import balance_band_weights, spectral_centroid, spectral_rolloff
 from .ops.stft import fft_frequencies, magnitude, n_frames
 
-__all__ = ["full_track_graph", "bucket_length", "pad_to_bucket", "pack_outputs", "unpack_outputs"]
+__all__ = ["full_track_graph", "structure_curves", "bucket_length", "pad_to_bucket", "pack_outputs", "unpack_outputs"]
 
 
 def bucket_length(n: int, *, hop: int = 512, min_bucket: int = 1 << 15) -> int:
@@ -121,6 +121,69 @@ def _rms_params(sr: int, seconds: float) -> tuple[int, int]:
     return fl, max(1, fl // 2)
 
 
+def structure_curves(
+    mag: torch.Tensor,
+    mel_power: torch.Tensor,
+    env: torch.Tensor,
+    f_valid: torch.Tensor,
+    *,
+    sr: int,
+    hop: int,
+) -> tuple:
+    """The structure curves of a batch: (novelty, normalised energy
+    novelty, percussive column sums, harmonic column sums), each (B, T)
+    and zero beyond each lane's ``f_valid``.
+
+    ``mag`` (B, bins, T) is the 2048-point |STFT|, ``mel_power`` its mel
+    power and ``env`` the onset envelope, already masked. HPSS runs
+    through ``median31``. The novelty is 0.5 spectral flux + 0.3 MFCC
+    self-similarity (cumulative-sum moving means over +-2 s) + 0.2
+    percussive-ratio energy novelty, each min-max normalised over the
+    valid frames, then smoothed. The fused graph and the per-module
+    structure graph both call this one function, so their curves cannot
+    drift apart."""
+
+    cfg = DEFAULT_CONFIG
+    dev = mag.device
+    total_frames = mag.shape[-1]
+    frame_idx = torch.arange(total_frames, device=dev)
+    fmask = frame_idx < f_valid[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    harmonic, percussive = hpss(mag, kernel_size=cfg.hpss_kernel, power=cfg.hpss_power)
+
+    log_mel = power_to_db(mel_power + 1e-9, dims=(-2, -1))
+    mfcc = mfcc_from_log_mel(log_mel, cfg.n_mfcc)  # (B, n_mfcc, T)
+    mfcc = _smooth_valid(mfcc, f_valid, 1.0)
+    context = max(2, int(round(cfg.novelty_context_seconds * sr / float(hop))))
+    cs = torch.cat([torch.zeros_like(mfcc[..., :1]), torch.cumsum(mfcc, dim=-1)], dim=-1)
+    lo = torch.clamp(frame_idx - context, 0, total_frames)
+    hi = torch.clamp(frame_idx + context, 0, total_frames)
+    left_mean = (cs[..., frame_idx] - cs[..., lo]) / torch.clamp_min(frame_idx - lo, 1)
+    right_mean = (cs[..., hi] - cs[..., frame_idx]) / torch.clamp_min(hi - frame_idx, 1)
+    ln = left_mean / (torch.linalg.vector_norm(left_mean, dim=-2, keepdim=True) + 1e-9)
+    rn = right_mean / (torch.linalg.vector_norm(right_mean, dim=-2, keepdim=True) + 1e-9)
+    sim = 1.0 - (ln * rn).sum(dim=-2)
+    sim_valid = (frame_idx >= context) & (frame_idx < (f_valid - context)[:, None])
+    self_similarity = torch.where(sim_valid, sim, zero)
+
+    perc_col = torch.where(fmask, percussive.sum(dim=-2), zero)
+    harm_col = torch.where(fmask, harmonic.sum(dim=-2), zero)
+    ratio_curve = perc_col / (perc_col + harm_col + 1e-9)
+    ratio_sigma = max(1.0, 0.5 * sr / float(hop))
+    ratio_smooth = _smooth_valid(ratio_curve, f_valid, ratio_sigma)
+    energy_novelty = torch.abs(torch.diff(ratio_smooth, prepend=ratio_smooth[..., 0:1]))
+
+    w_flux, w_sim, w_energy = cfg.novelty_weights
+    combined = (
+        w_flux * _minmax_normalise(env, fmask)
+        + w_sim * _minmax_normalise(self_similarity, fmask)
+        + w_energy * _minmax_normalise(energy_novelty, fmask)
+    )
+    novelty = torch.where(fmask, _smooth_valid(combined, f_valid, cfg.novelty_smooth_sigma), zero)
+    return novelty, _minmax_normalise(energy_novelty, fmask), perc_col, harm_col
+
+
 def _ms_magnitude(ms: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """|STFT| (B, 2, bins, frames) of the [mid, side] stack (B, 2, n).
 
@@ -192,41 +255,11 @@ def full_track_graph(
     )
 
     # ---- structure: HPSS + combined novelty -----------------------------
-    harmonic, percussive = hpss(mag, kernel_size=cfg.hpss_kernel, power=cfg.hpss_power)
-    spectral_flux = env
-
-    log_mel = power_to_db(mel_power + 1e-9, dims=(-2, -1))
-    mfcc = mfcc_from_log_mel(log_mel, cfg.n_mfcc)  # (B, n_mfcc, T)
-    mfcc = _smooth_valid(mfcc, f_valid, 1.0)
-    context = max(2, int(round(cfg.novelty_context_seconds * sr / float(hop))))
-    cs = torch.cat([torch.zeros_like(mfcc[..., :1]), torch.cumsum(mfcc, dim=-1)], dim=-1)
-    lo = torch.clamp(frame_idx - context, 0, total_frames)
-    hi = torch.clamp(frame_idx + context, 0, total_frames)
-    left_mean = (cs[..., frame_idx] - cs[..., lo]) / torch.clamp_min(frame_idx - lo, 1)
-    right_mean = (cs[..., hi] - cs[..., frame_idx]) / torch.clamp_min(hi - frame_idx, 1)
-    ln = left_mean / (torch.linalg.vector_norm(left_mean, dim=-2, keepdim=True) + 1e-9)
-    rn = right_mean / (torch.linalg.vector_norm(right_mean, dim=-2, keepdim=True) + 1e-9)
-    sim = 1.0 - (ln * rn).sum(dim=-2)
-    sim_valid = (frame_idx >= context) & (frame_idx < (f_valid - context)[:, None])
-    self_similarity = torch.where(sim_valid, sim, zero)
-
-    perc_col = torch.where(fmask, percussive.sum(dim=-2), zero)
-    harm_col = torch.where(fmask, harmonic.sum(dim=-2), zero)
-    ratio_curve = perc_col / (perc_col + harm_col + 1e-9)
-    ratio_sigma = max(1.0, 0.5 * sr / float(hop))
-    ratio_smooth = _smooth_valid(ratio_curve, f_valid, ratio_sigma)
-    energy_novelty = torch.abs(torch.diff(ratio_smooth, prepend=ratio_smooth[..., 0:1]))
-
-    w_flux, w_sim, w_energy = cfg.novelty_weights
-    combined = (
-        w_flux * _minmax_normalise(spectral_flux, fmask)
-        + w_sim * _minmax_normalise(self_similarity, fmask)
-        + w_energy * _minmax_normalise(energy_novelty, fmask)
+    novelty, energy_novelty, perc_col, harm_col = structure_curves(
+        mag, mel_power, env, f_valid, sr=sr, hop=hop
     )
-    out["novelty"] = torch.where(
-        fmask, _smooth_valid(combined, f_valid, cfg.novelty_smooth_sigma), zero
-    )
-    out["energy_novelty"] = _minmax_normalise(energy_novelty, fmask)
+    out["novelty"] = novelty
+    out["energy_novelty"] = energy_novelty
     out["perc_col"] = perc_col
     out["harm_col"] = harm_col
 

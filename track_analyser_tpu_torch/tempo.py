@@ -3,8 +3,9 @@
 The host finishers of the JAX package's ``tempo.py``: a float64
 autocorrelation of the read-back envelope, band-masked argmax with
 parabolic refinement, a least-squares onset regression for the grid, and
-the DP beat tracker. ``beat_grid`` also computes the envelope itself,
-with the port's tensor ops.
+the DP beat tracker. ``onset_envelope``, ``estimate_bpm`` and
+``beat_grid`` also compute the envelope itself, on the caller's device,
+over the signal padded to the fused graph's bucket.
 
 The beat grid is a ``dict[str, np.ndarray]`` with the columns of the JAX
 package's ``pd.DataFrame`` (time, frame, bar, beat, is_downbeat): the
@@ -26,6 +27,8 @@ BEATS_PER_BAR = DEFAULT_CONFIG.beats_per_bar
 __all__ = [
     "autocorrelate_host",
     "beat_grid",
+    "estimate_bpm",
+    "onset_envelope",
     "grid_and_bpm_from_env",
     "track_beats",
     "DEFAULT_HOP_LENGTH",
@@ -255,28 +258,85 @@ def track_beats(
     return frames * hop_length / float(sr)
 
 
+def _envelope_graph(y, *, sr: int, hop_length: int, n_fft: int = 2048, n_mels: int = 128):
+    """Device portion: the onset envelope of ``y`` (a tensor on the
+    device): |STFT|^2 -> mel -> spectral flux. The JAX package's graph
+    also returns a device autocorrelation, which its per-module path
+    discards for ``autocorrelate_host``; the port computes only the
+    envelope."""
+
+    from .ops.mel import mel_filterbank, melspectrogram_from_power
+    from .ops.onset import onset_strength_from_mel
+    from .ops.stft import magnitude
+
+    power = magnitude(y, n_fft, hop_length, power=2.0)
+    mel_power = melspectrogram_from_power(power, mel_filterbank(sr, n_fft, n_mels))
+    return onset_strength_from_mel(mel_power, n_fft=n_fft, hop_length=hop_length)
+
+
 def _padded_envelope(y: np.ndarray, sr: int, hop_length: int, device) -> np.ndarray:
     """Onset envelope over the bucket-padded signal, trimmed to the valid
-    frames (the fused graph's envelope, bit for bit on one device)."""
+    frames. Padding to the fused graph's bucket makes it the fused graph's
+    envelope on one device: the beat regression makes discrete decisions,
+    so shape-dependent float noise would fork the two paths' BPM."""
 
     import torch
 
     from .device import resolve_device
-    from .ops.mel import mel_filterbank, melspectrogram_from_power
-    from .ops.onset import onset_strength_from_mel
-    from .ops.stft import magnitude
-    from .substrate import bucket_length
+    from .substrate import pad_to_bucket
 
     dev = resolve_device(device)
-    y = np.asarray(y, dtype=np.float32)
-    n = y.size
-    padded = np.zeros(bucket_length(n, hop=hop_length), dtype=np.float32)
-    padded[:n] = y
+    padded, f_valid = pad_to_bucket(np.asarray(y, dtype=np.float32), hop=hop_length)
     with torch.inference_mode():
-        power = magnitude(torch.from_numpy(padded).to(dev), 2048, hop_length, power=2.0)
-        mel_power = melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128))
-        env = onset_strength_from_mel(mel_power, n_fft=2048, hop_length=hop_length)
-    return env.cpu().numpy().astype(np.float64)[: 1 + n // hop_length]
+        env = _envelope_graph(torch.from_numpy(padded).to(dev), sr=sr, hop_length=hop_length)
+    return env.cpu().numpy().astype(np.float64)[:f_valid]
+
+
+def onset_envelope(
+    y: np.ndarray, sr: int, hop_length: int = DEFAULT_HOP_LENGTH, *, device="cuda"
+) -> np.ndarray:
+    """Onset strength envelope (host view of the device result)."""
+
+    env = _padded_envelope(y, sr, hop_length, device)
+    if env.size == 0:
+        return np.zeros(1, dtype=float)
+    return env
+
+
+def _envelope_and_autocorr(
+    y: np.ndarray, sr: int, hop_length: int, device="cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    env = _padded_envelope(y, sr, hop_length, device)
+    if env.size == 0:
+        return np.zeros(1, dtype=float), np.zeros(1, dtype=float)
+    return env, autocorrelate_host(env)
+
+
+def estimate_bpm(
+    y: np.ndarray,
+    sr: int,
+    bpm_min: float = DEFAULT_CONFIG.bpm_min,
+    bpm_max: float = DEFAULT_CONFIG.bpm_max,
+    *,
+    hop_length: int = DEFAULT_HOP_LENGTH,
+    device="cuda",
+) -> float:
+    """Estimate tempo from autocorrelation of the onset strength envelope,
+    refined by the onset regression's slope when it lies in the band."""
+
+    env, ac = _envelope_and_autocorr(np.asarray(y, dtype=np.float32), sr, hop_length, device)
+    if ac.size <= 1:
+        return float(bpm_min)
+    bpm = _bpm_from_autocorr(ac, sr, hop_length, bpm_min, bpm_max)
+
+    regression = _fit_onset_regression(env, sr, hop_length, 60.0 / bpm)
+    if regression is not None:
+        _, slope = regression
+        if slope > 0:
+            refined_bpm = 60.0 / slope
+            if bpm_min <= refined_bpm <= bpm_max:
+                bpm = float(refined_bpm)
+    return float(bpm)
 
 
 def beat_grid(
@@ -290,11 +350,10 @@ def beat_grid(
     """Constant-tempo beat grid annotated with bar positions (columns
     time, frame, bar, beat, is_downbeat)."""
 
-    env = _padded_envelope(y, sr, hop_length, device)
-    if env.size == 0:
-        env = np.zeros(1, dtype=float)
+    y = np.asarray(y, dtype=np.float32)
+    env, ac = _envelope_and_autocorr(y, sr, hop_length, device)
     duration = len(y) / float(sr)
     grid, _ = grid_and_bpm_from_env(
-        env, None, duration, sr, hop_length=hop_length, beats_per_bar=beats_per_bar
+        env, ac, duration, sr, hop_length=hop_length, beats_per_bar=beats_per_bar
     )
     return grid
