@@ -4,8 +4,11 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: torch / CUDA versions, the card, its power limit and
-     clock, nvcc;
-  2. build both CUDA kernels from csrc/ (one nvcc each, started together);
+     clock, nvcc, the host CPU;
+  2. build both CUDA kernels from csrc/ (one nvcc each) and the native host
+     libraries (libta_native, and libta_ffmpeg where the libav* headers
+     are; g++), all started together, each with its build seconds; a
+     failed libta_native build fails the run;
   3. the median31 kernel against its plain PyTorch version on the card,
      along both axes, at the main paths' shapes (one lane and a batch of
      four lanes) and at ragged shapes (bit-identical), all timed with CUDA
@@ -78,7 +81,21 @@ Phases (any failure exits non-zero and prints no result line):
      BPM), analyze with plots (exit 1 with the ImportError where
      matplotlib is absent), a file that does not decode (exit 1),
      analyze-batch --transport ms5 --device-batch 4 --manifest twice (the
-     second run reports the tracks as already done).
+     second run reports the tracks as already done);
+ 14. the decode tiers and the native host library at full width: each
+     tier's presence (absent is no failure; a present tier that fails is);
+     the 181 s fixture as PCM_16 WAV and as FLAC (io/flac.encode_flac,
+     timed), analyse_track on the FLAC equal to it on the WAV in every
+     field through the native FLAC decoder (medians +1 per axis); native
+     against numpy FLAC decode on a 30 s excerpt and WAV decode on the
+     181 s file (bit-identical, timed); every ta_quantise_* on the 181 s
+     track against its numpy plain version (bit-identical, timed); the
+     golden Ogg and MP3 vectors through their tiers and the ffmpeg tier,
+     and, where libmp3lame and libvorbisenc are, a 181 s MP3 and Ogg
+     (BPM 118 +- 0.1, the WAV's key); an ms5 sweep at device_batch 4 over
+     the mixed-format files, each lane against its batch-1 analyse_track;
+     a StageTimer report of a warm per-module call and a device_trace of
+     a warm fused call that names the median kernel.
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -88,6 +105,7 @@ Imports nothing of JAX: it drives the port only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -97,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -437,6 +456,142 @@ def frame_norm_err(got, ref) -> float:
     return float(((got - ref).abs() / (norm + 1e-9)).max())
 
 
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (a host may report its
+    model name as "unknown": the vendor, family, model and stepping still
+    tell the part) and the logical core count."""
+
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return f"CPU not named (no /proc/cpuinfo), {os.cpu_count()} logical cores"
+    info: dict = {}
+    for line in lines:
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    part = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "stepping", "cpu MHz") if k in info)
+    return f"{info.get('model name', 'no model name')} ({part}), {os.cpu_count()} logical cores"
+
+
+@contextlib.contextmanager
+def counting(module, names: "tuple[str, ...]"):
+    """Count the calls of ``module.<name>`` for each name inside the block
+    (the callers look the function up on the module at each call)."""
+
+    calls = dict.fromkeys(names, 0)
+    real = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+
+        return call
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+# Copies of the tests' ctypes encoders (tests/test_mp3.py, tests/test_vorbis.py)
+# over the system libmp3lame and libvorbisenc: phase 14 writes its MP3 and
+# Ogg with them. The Ogg one also marks the end of the stream, so that the
+# last partial block is encoded too.
+def encode_mp3(path: Path, pcm: np.ndarray, sr: int, kbps: int = 128) -> None:
+    """Mono float PCM to a constant-rate MP3 through libmp3lame."""
+
+    import ctypes
+    import ctypes.util
+
+    lame = ctypes.CDLL(ctypes.util.find_library("mp3lame"))
+    lame.lame_init.restype = ctypes.c_void_p
+    gfp = ctypes.c_void_p(lame.lame_init())
+    for setter, value in (("in_samplerate", sr), ("num_channels", 1), ("mode", 3), ("brate", kbps)):
+        getattr(lame, f"lame_set_{setter}")(gfp, value)
+    check(lame.lame_init_params(gfp) >= 0, "lame_init_params failed")
+    ints = np.clip(pcm * 32767.0, -32768, 32767).astype(np.int16)
+    out = ctypes.create_string_buffer(int(1.25 * ints.size + 7200))
+    n = lame.lame_encode_buffer(gfp, ints.ctypes.data_as(ctypes.POINTER(ctypes.c_short)), None, ints.size, out, len(out))
+    check(n >= 0, f"lame_encode_buffer returned {n}")
+    data = out.raw[:n]
+    n = lame.lame_encode_flush(gfp, out, len(out))
+    data += out.raw[: max(n, 0)]
+    lame.lame_close(gfp)
+    path.write_bytes(data)
+
+
+def encode_ogg(path: Path, pcm: np.ndarray, sr: int) -> None:
+    """Mono float PCM to Ogg Vorbis (VBR quality 0.4) through libvorbisenc."""
+
+    import ctypes
+    import ctypes.util
+
+    class Packet(ctypes.Structure):
+        _fields_ = [("packet", ctypes.POINTER(ctypes.c_ubyte)), ("bytes", ctypes.c_long), ("b_o_s", ctypes.c_long),
+                    ("e_o_s", ctypes.c_long), ("granulepos", ctypes.c_int64), ("packetno", ctypes.c_int64)]
+
+    class Page(ctypes.Structure):
+        _fields_ = [("header", ctypes.POINTER(ctypes.c_ubyte)), ("header_len", ctypes.c_long),
+                    ("body", ctypes.POINTER(ctypes.c_ubyte)), ("body_len", ctypes.c_long)]
+
+    def opaque():
+        # c_double units: the real structs hold pointers and doubles and
+        # need 8-byte alignment, which a byte blob would not give
+        return (ctypes.c_double * 2048)()
+
+    ogg, vb, enc = (ctypes.CDLL(ctypes.util.find_library(name)) for name in ("ogg", "vorbis", "vorbisenc"))
+    vi, vc, vd, vblk, stream = (opaque() for _ in range(5))
+    vb.vorbis_info_init(vi)
+    check(enc.vorbis_encode_init_vbr(vi, ctypes.c_long(1), ctypes.c_long(sr), ctypes.c_float(0.4)) == 0, "vorbis_encode_init_vbr failed")
+    vb.vorbis_comment_init(vc)
+    vb.vorbis_analysis_init(vd, vi)
+    vb.vorbis_block_init(vd, vblk)
+    ogg.ogg_stream_init(stream, 1)
+    headers = [Packet(), Packet(), Packet()]
+    vb.vorbis_analysis_headerout(vd, vc, *(ctypes.byref(h) for h in headers))
+    for packet in headers:
+        ogg.ogg_stream_packetin(stream, ctypes.byref(packet))
+    out = bytearray()
+    page = Page()
+
+    def flush_pages(force: bool) -> None:
+        fn = ogg.ogg_stream_flush if force else ogg.ogg_stream_pageout
+        while fn(stream, ctypes.byref(page)) != 0:
+            out.extend(ctypes.string_at(page.header, page.header_len))
+            out.extend(ctypes.string_at(page.body, page.body_len))
+
+    flush_pages(True)
+    vb.vorbis_analysis_buffer.restype = ctypes.POINTER(ctypes.POINTER(ctypes.c_float))
+    def drain() -> None:
+        while vb.vorbis_analysis_blockout(vd, vblk) == 1:
+            vb.vorbis_analysis(vblk, None)
+            vb.vorbis_bitrate_addblock(vblk)
+            packet = Packet()
+            while vb.vorbis_bitrate_flushpacket(vd, ctypes.byref(packet)) == 1:
+                ogg.ogg_stream_packetin(stream, ctypes.byref(packet))
+                flush_pages(False)
+
+    pcm = np.ascontiguousarray(pcm, dtype=np.float32)
+    for pos in range(0, pcm.size, 1024):
+        n = min(1024, pcm.size - pos)
+        ctypes.memmove(vb.vorbis_analysis_buffer(vd, n)[0], pcm[pos : pos + n].ctypes.data, n * 4)
+        vb.vorbis_analysis_wrote(vd, n)
+        drain()
+    vb.vorbis_analysis_wrote(vd, 0)  # the end of the stream
+    drain()
+    flush_pages(True)
+    ogg.ogg_stream_clear(stream)
+    vb.vorbis_block_clear(vblk)
+    vb.vorbis_dsp_clear(vd)
+    vb.vorbis_comment_clear(vc)
+    vb.vorbis_info_clear(vi)
+    path.write_bytes(bytes(out))
+
+
 def wall_ms(fn):
     """(result, host milliseconds) of ``fn``, the card drained on both sides."""
 
@@ -765,6 +920,225 @@ def cli_phase(card: str, main_track: np.ndarray, main_bpm: float, sources: "list
             check((folder / "report.json").is_file() and (folder / "hook.mid").is_file(), f"{folder.name}: artefacts missing")
 
 
+QUANTISERS = ("quantise_i8", "quantise_i16", "quantise_i16_stereo", "quantise_ms", "quantise_mid", "quantise_mid6", "quantise_mid5")
+
+
+def hold_quantisers(card: str, cpu: str, stereo: np.ndarray) -> dict:
+    """Every ``ta_quantise_*`` of the native library on a full track, held
+    bit for bit against its numpy plain version on the same input (the
+    float64 stereo sums to 1e-12: the C++ adds in another order); both
+    timed on the host. Returns {symbol: {"native_ms", "plain_ms"}}."""
+
+    from track_analyser_tpu_torch.native import binding
+    from track_analyser_tpu_torch.parallel import batch
+    from track_analyser_tpu_torch.utils import AudioInput
+
+    n = stereo.shape[-1]
+    audio = AudioInput(samples=stereo.mean(axis=0), sample_rate=SR, stereo_samples=stereo)
+    source = batch._source_channels(audio)
+    bucket, ms_bucket = batch.bucket_length(n), batch.ms_bucket_length(n)
+    qlen = batch._ms_quantise_len(n, ms_bucket)
+    mono = np.ascontiguousarray(stereo[0])
+
+    def plain_i16_mono():
+        padded = np.zeros(bucket, dtype=np.float32)
+        padded[:n] = mono
+        return batch._quantise_i16(padded)
+
+    # symbol -> (native call, plain call)
+    cases = {
+        "quantise_i8": (lambda: binding.quantise_i8(source, bucket, batch._I8_BLOCK), lambda: batch._quantise_i8(batch._pad_track(audio, bucket)[0])),
+        "quantise_i16": (lambda: (binding.quantise_i16(mono, bucket),), lambda: (plain_i16_mono(),)),
+        "quantise_i16_stereo": (lambda: (binding.quantise_i16_stereo(source, bucket),), lambda: (batch._quantise_i16(batch._pad_track(audio, bucket)[0]),)),
+        # the port ships the mid only: ta_quantise_ms's mid, scales and sums are held against the mid's plain version
+        "quantise_ms": (lambda: (lambda o: (o[0], o[1], o[5]))(binding.quantise_ms(source, qlen, batch._I8_BLOCK)),
+                        lambda: batch._quantise_mid_range(source, n, 0, qlen)),
+        "quantise_mid": (lambda: binding.quantise_mid(source, qlen, batch._I8_BLOCK), lambda: batch._quantise_mid_range(source, n, 0, qlen)),
+        "quantise_mid6": (lambda: binding.quantise_mid6(source, qlen, batch._I8_BLOCK), lambda: batch._quantise_mid6_range(source, n, 0, qlen)),
+        "quantise_mid5": (lambda: binding.quantise_mid5(source, qlen, batch._MS5_BLOCK), lambda: batch._quantise_mid5_range(source, n, 0, qlen)),
+    }
+    out = {}
+    for symbol, (native, plain) in cases.items():
+        got = native()
+        native_ms = statistics.median(wall_ms(native)[1] for _ in range(3))
+        ref, plain_ms = wall_ms(plain)
+        for k, (g, r) in enumerate(zip(got, ref)):
+            g, r = np.asarray(g), np.asarray(r)
+            check(g.shape == r.shape and g.dtype == r.dtype, f"ta_{symbol} output {k}: {g.shape} {g.dtype} vs {r.shape} {r.dtype}")
+            if g.dtype == np.float64 and g.shape == (8,):  # the stereo sums
+                check(bool(np.allclose(g, r, rtol=1e-12, atol=0.0)), f"ta_{symbol} stereo sums beyond 1e-12")
+            else:
+                check(np.array_equal(g, r), f"ta_{symbol} output {k} is not bit-identical to the plain version")
+        out[f"ta_{symbol}"] = {"native_ms": native_ms, "plain_ms": plain_ms}
+        what = "its mid, scales and sums against the mid's plain version" if symbol == "quantise_ms" else "against its plain version"
+        print(f"ta_{symbol} on the {n / SR:.0f} s track, {what}: bit-identical; native {native_ms:.2f} ms, numpy {plain_ms:.2f} ms -- {card}; host {cpu}")
+    return out
+
+
+def decode_phase(card: str, cpu: str, launches: "Launches", path_launches: dict, main_track: np.ndarray) -> dict:
+    """Phase 14: the decode tiers and the native host library at full
+    width: FLAC against the PCM_16 WAV of the same samples through
+    analyse_track, native against numpy decode and quantisers, the Ogg,
+    MP3 and ffmpeg tiers, a mixed-format sweep, StageTimer and
+    device_trace."""
+
+    import ctypes.util
+
+    from track_analyser_tpu_torch import analyse_track
+    from track_analyser_tpu_torch.io import decode_file, decode_wav, encode_flac, ffmpeg, mpg123, vorbis, write_wav
+    from track_analyser_tpu_torch.io.flac import decode_flac
+    from track_analyser_tpu_torch.native import binding
+    from track_analyser_tpu_torch.parallel import batch
+    from track_analyser_tpu_torch.profiling import StageTimer, device_trace
+
+    phase("14 decode tiers and the native host library: FLAC, Ogg, MP3, ffmpeg, the quantisers, a mixed sweep")
+    phase_start = time.perf_counter()
+    out: dict = {}
+    tiers = {"Ogg (libvorbisfile)": vorbis.unavailable_reason(), "MP3 (libmpg123)": mpg123.unavailable_reason(),
+             "ffmpeg (libta_ffmpeg)": ffmpeg.unavailable_reason()}
+    encoders = {"mp3": ctypes.util.find_library("mp3lame"), "ogg": all(ctypes.util.find_library(n) for n in ("ogg", "vorbis", "vorbisenc"))}
+    print("tier native WAV/FLAC (libta_native): present")
+    for name, reason in tiers.items():
+        print(f"tier {name}: {'present' if reason is None else f'absent ({reason})'}")
+    print(f"encoders for the 181 s MP3 / Ogg: libmp3lame {'present' if encoders['mp3'] else 'absent'}, libvorbisenc {'present' if encoders['ogg'] else 'absent'}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1. the 181 s fixture as PCM_16 WAV, and as FLAC of the WAV's integers
+        wav = tmp / "track_181s.wav"
+        write_wav(wav, main_track, SR, subtype="PCM_16")
+        ints = np.round(decode_wav(wav)[0] * 32768.0).astype(np.int64)
+        flac, encode_ms = wall_ms(lambda: encode_flac(tmp / "track_181s.flac", ints, SR))
+        print(f"181 s fixture: PCM_16 WAV {wav.stat().st_size} bytes; FLAC {flac.stat().st_size} bytes, encoded by io/flac.encode_flac in {encode_ms / 1e3:.2f} s; host {cpu}")
+
+        # 2. analyse_track on the FLAC equals it on the WAV, through the native FLAC decoder
+        analyse_track(str(wav), device="cuda")  # the PCM_16 file's first call
+        launches.reset()
+        with counting(binding, ("decode", "decode_flac")) as decodes, counting(batch.native_binding, QUANTISERS) as quantised:
+            from_flac, flac_ms = wall_ms(lambda: analyse_track(str(flac), device="cuda"))
+        path_launches["analyse_track(FLAC)"] = counts = launches.read()
+        check(counts == ONCE_PER_AXIS, f"analyse_track(FLAC): launches {counts}, expected {ONCE_PER_AXIS}")
+        check(decodes == {"decode": 1, "decode_flac": 1}, f"analyse_track(FLAC): native decoder calls {decodes}")
+        from_wav, wav_ms = wall_ms(lambda: analyse_track(str(wav), device="cuda"))
+        fields = differing_fields(from_flac, from_wav)
+        check(not fields, f"analyse_track(FLAC) differs from analyse_track(WAV) in {fields}")
+        print(
+            f"analyse_track(FLAC) equals analyse_track(PCM_16 WAV) in every field; native decoder calls {json.dumps(decodes)}, "
+            f"quantiser calls {json.dumps({k: v for k, v in quantised.items() if v})}, launches {json.dumps(counts)}; warm wall "
+            f"{flac_ms:.1f} ms FLAC, {wav_ms:.1f} ms WAV -- {card}"
+        )
+
+        # 3. native against numpy FLAC decode on the 30 s excerpt, and the full track's native decode
+        excerpt = encode_flac(tmp / "excerpt_30s.flac", ints[:, : 30 * SR], SR)
+        native, native_ms = wall_ms(lambda: binding.decode_flac(str(excerpt)))
+        plain, plain_ms = wall_ms(lambda: decode_flac(excerpt))
+        check(native is not None and np.array_equal(native[0], plain[0]) and native[1:] == plain[1:], "native and numpy FLAC decode differ on the 30 s excerpt")
+        check(np.array_equal(native[0], (ints[:, : 30 * SR] / 32768.0).astype(np.float32)), "the 30 s FLAC does not decode to its samples")
+        full_ms = statistics.median(wall_ms(lambda: binding.decode_flac(str(flac)))[1] for _ in range(3))
+        out["flac_decode_ms"] = {"native_30s": native_ms, "numpy_30s": plain_ms, "native_181s": full_ms}
+        print(f"FLAC decode, 30 s excerpt: native {native_ms:.2f} ms, numpy {plain_ms:.1f} ms, bit-identical; native on the 181 s FLAC {full_ms:.2f} ms -- host {cpu}")
+
+        # 4. native against numpy WAV decode on the 181 s PCM_16 WAV
+        native, native_ms = wall_ms(lambda: binding.decode(str(wav)))
+        native_ms = min(native_ms, wall_ms(lambda: binding.decode(str(wav)))[1])
+        plain, plain_ms = wall_ms(lambda: decode_wav(wav))
+        check(native is not None and np.array_equal(native[0], plain[0]) and native[1:] == plain[1:], "native and numpy WAV decode differ")
+        out["wav_decode_ms"] = {"native": native_ms, "numpy": plain_ms}
+        print(f"WAV decode, 181 s PCM_16: native {native_ms:.2f} ms, numpy {plain_ms:.2f} ms, bit-identical -- host {cpu}")
+
+        # 5. every quantiser on the 181 s track against its plain version
+        out["quantisers"] = hold_quantisers(card, cpu, plain[0])
+
+        # 6. the Ogg, MP3 and ffmpeg tiers on the golden vectors, and on a 181 s track where the encoders are here
+        golden = Path(__file__).resolve().parent / "tests" / "golden"
+        extra = []
+        if tiers["Ogg (libvorbisfile)"] is None:
+            blob = json.loads((golden / "ogg_tiny.json").read_text())
+            (tmp / "golden.ogg").write_bytes(zlib.decompress(bytes.fromhex(blob["ogg_hex_zlib"])))
+            data, rate, meta = decode_file(tmp / "golden.ogg")
+            spec = np.abs(np.fft.rfft(data[0, : rate // 2]))
+            peak_hz = float(np.fft.rfftfreq(rate // 2, 1 / rate)[np.argmax(spec)])
+            check(meta["file_type"] == "OGG" and rate == blob["sample_rate"] and data.shape[1] > blob["n_samples_min"], f"golden Ogg: {meta}")
+            check(abs(peak_hz - blob["tone_hz"]) < 5.0, f"golden Ogg: peak at {peak_hz} Hz")
+            print(f"golden Ogg through the libvorbisfile tier: {data.shape} at {rate} Hz, peak {peak_hz:.1f} Hz")
+        mp3_golden = None
+        if tiers["MP3 (libmpg123)"] is None or tiers["ffmpeg (libta_ffmpeg)"] is None:
+            blob = json.loads((golden / "mp3_tiny.json").read_text())
+            mp3_golden = tmp / "golden.mp3"
+            mp3_golden.write_bytes(zlib.decompress(bytes.fromhex(blob["mp3_hex_zlib"])))
+        if tiers["MP3 (libmpg123)"] is None:
+            data, rate, meta = decode_file(mp3_golden)
+            want = np.frombuffer(bytes.fromhex(blob["decoded_ch0_f32_hex"]), dtype=np.float32)
+            off = float(np.abs(data[0][:: blob["decoded_stride"]][: want.size] - want).max())
+            check(meta["file_type"] == "MP3" and rate == blob["sample_rate"] and off <= 1e-4, f"golden MP3: {meta}, off by {off}")
+            print(f"golden MP3 through the libmpg123 tier: {data.shape} at {rate} Hz, within {off:.1e} of the committed samples")
+        if tiers["ffmpeg (libta_ffmpeg)"] is None:
+            got = ffmpeg.decode(str(mp3_golden))
+            check(got is not None and got[1] == blob["sample_rate"] and bool(np.isfinite(got[0]).all()), "the ffmpeg tier declined the golden MP3")
+            print(f"golden MP3 through the ffmpeg tier: {got[0].shape} at {got[1]} Hz, codec {got[2]['subtype']}")
+        for kind, tier, encode in (("mp3", "MP3 (libmpg123)", encode_mp3), ("ogg", "Ogg (libvorbisfile)", encode_ogg)):
+            if not encoders[kind] or tiers[tier] is not None:
+                print(f"181 s {kind}: not run ({'no encoder' if not encoders[kind] else 'no decoder'})")
+                continue
+            path = tmp / f"track_181s.{kind}"
+            mono = main_track.mean(axis=0)
+            _none, enc_ms = wall_ms(lambda: encode(path, mono, SR))
+            # The codec's delay (an MP3 encoder's priming and first frame)
+            # shifts the beat grid against the frames, which moves this
+            # fixture's tempo reading as the same shift of the WAV does; the
+            # held file is encoded from the track advanced by that delay.
+            decoded = decode_file(path)[0][0]
+            lag = int(np.argmax(np.correlate(decoded[: 4 * SR // 10], mono[: SR // 10], "valid")))
+            as_encoded = analyse_track(str(path), device="cuda")
+            if lag:
+                encode(path, mono[lag:], SR)
+                analyse_track(str(path), device="cuda")  # this length's first call
+            result, ms = wall_ms(lambda: analyse_track(str(path), device="cuda"))
+            check(abs(result.beat.bpm - BPM) <= 0.1, f"181 s {kind}: bpm {result.beat.bpm}")
+            check(result.harmonic.primary_key.key == from_wav.harmonic.primary_key.key, f"181 s {kind}: key {result.harmonic.primary_key.key}")
+            extra.append(path)
+            print(
+                f"181 s {kind} (encoded in {enc_ms:.0f} ms): the decoded stream lags the input by {lag} samples, bpm {as_encoded.beat.bpm:.4f} "
+                f"as encoded; encoded from the track advanced by the lag: bpm {result.beat.bpm:.4f}, key {result.harmonic.primary_key.key} "
+                f"as the WAV's; warm analyse_track {ms:.1f} ms -- {card}"
+            )
+
+        # 7. a mixed-format sweep, ms5 at device_batch 4, against batch-1 analyse_track
+        sources = [str(wav), str(flac), str(excerpt)] + [str(p) for p in extra]
+        chunks = sweep_chunks([decode_file(s)[0].shape[-1] for s in sources], SWEEP_BATCH)
+        launches.reset()
+        with counting(batch.native_binding, QUANTISERS) as quantised:
+            outcome, sweep_ms = wall_ms(lambda: batch.analyse_library(sources, device="cuda", transport="ms5", device_batch=SWEEP_BATCH))
+        path_launches["sweep (mixed formats, ms5)"] = counts = launches.read()
+        expected = {"median31_time": chunks, "median31_freq": chunks, "stft_magnitude": 0}
+        check(counts == expected, f"mixed sweep: launches {counts}, expected {expected}")
+        check(quantised["quantise_mid5"] == len(sources) and sum(quantised.values()) == len(sources), f"mixed sweep: quantiser calls {quantised}")
+        for source, lane in zip(sources, outcome):
+            single = analyse_track(source, transport="ms5", device="cuda")
+            compare_results(lane, single, f"mixed sweep lane {Path(source).name} vs analyse_track", rounding_differs=True)
+        print(
+            f"mixed sweep of {len(sources)} sources ({', '.join(Path(s).suffix for s in sources)}): {sweep_ms:.1f} ms wall, every lane "
+            f"agrees with its batch-1 analyse_track; launches {json.dumps(counts)}; quantiser calls {json.dumps({k: v for k, v in quantised.items() if v})} -- {card}"
+        )
+
+        # 8. StageTimer on a warm per-module call, device_trace of a warm fused call
+        timer = StageTimer()
+        analyse_track(str(wav), fused=False, device="cuda")
+        analyse_track(str(wav), fused=False, device="cuda", progress_callback=timer.callback())
+        print(f"StageTimer, warm analyse_track(path, fused=False) -- {card}:\n{timer.report()}")
+        with device_trace(tmp / "trace") as trace_path:
+            analyse_track(str(wav), device="cuda")
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        median_events = [e for e in events if "median31_kernel" in e.get("name", "") and e.get("dur")]
+        check(len(median_events) == 2, f"device_trace: {len(median_events)} median kernel events, expected 2")
+        print(
+            f"device_trace of a warm analyse_track(path): {trace_path.stat().st_size} bytes, {len(events)} events; median kernels "
+            f"{[(e['name'][:40], round(e['dur'] / 1e3, 3)) for e in median_events]} (name, device ms) -- {card}"
+        )
+    print(f"phase 14: {time.perf_counter() - phase_start:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -803,13 +1177,36 @@ def main() -> None:
     print("device", torch.cuda.get_device_name(0), "| count", torch.cuda.device_count())
     print("card:", card, f"| max SM clock {max_clock_mhz:.0f} MHz")
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
+    cpu = host_cpu()
+    print("host CPU:", cpu)
     minmax_per_s = MINMAX_PER_SM_CLOCK * SMS * max_clock_mhz * 1e6
 
     # ---- 2. build ----------------------------------------------------------
-    phase("2 build (one nvcc per source, started together)")
+    phase("2 build: one nvcc per CUDA source and the native host libraries (g++), all started together")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from track_analyser_tpu_torch.native import build as native_build
+
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
+    ffmpeg_absent = native_build.ffmpeg_absent_reason()
     t0 = time.perf_counter()
-    built = cuda_build.build_all()
-    print(f"built {', '.join(p.name for p, _ in built.values())} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        cuda_job = pool.submit(timed, cuda_build.build_all)
+        native_job = pool.submit(timed, native_build.build_native)
+        ffmpeg_job = pool.submit(timed, native_build.build_ffmpeg) if ffmpeg_absent is None else None
+        built, cuda_s = cuda_job.result()
+        (native_path, _log), native_s = native_job.result()  # a failed build raises with the compiler's log
+        ffmpeg_built = ffmpeg_job.result() if ffmpeg_job is not None else None
+    print(f"built {', '.join(p.name for p, _ in built.values())} in {cuda_s:.2f} s")
+    print(f"libta_native: {native_path.name} built in {native_s:.2f} s ({native_build.cxx()} {' '.join(native_build.FLAGS)})")
+    if ffmpeg_built is None:
+        print(f"libta_ffmpeg: absent ({ffmpeg_absent})")
+    else:
+        print(f"libta_ffmpeg: {ffmpeg_built[0][0].name} built in {ffmpeg_built[1]:.2f} s")
+    print(f"phase 2 wall: {time.perf_counter() - t0:.2f} s")
     for source, (_path, log) in built.items():
         print(f"{source}:", "\n".join(l for l in log.splitlines() if "ptxas info" in l or "spill" in l) or "(cached)")
     stft_blocks_per_sm = fused_stft.blocks_per_sm()
@@ -1160,8 +1557,6 @@ def main() -> None:
 
     # ---- 9. stems at full width ---------------------------------------------
     phase("9 stems at full width: mask net v5, DSP separator, separate_stems on the 181 s stereo WAV")
-    import contextlib
-
     from track_analyser_tpu_torch.analysis import stems as stems_module
     from track_analyser_tpu_torch.io import decode_wav, load_audio
     from track_analyser_tpu_torch.models import separation, separation_net
@@ -1414,6 +1809,7 @@ def main() -> None:
         per_module_phase(card, launches, path_launches, main_track, excerpt)
         subbyte_phase(card, launches, path_launches, main_track, sources, lengths, good)
         cli_phase(card, main_track, main_result.beat.bpm, sources, good)
+        decode_phase(card, cpu, launches, path_launches, main_track)
     finally:
         library_dir.cleanup()
     print(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s")

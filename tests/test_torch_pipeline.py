@@ -390,7 +390,10 @@ def test_import_leaves_jax_out() -> None:
         "track_analyser_tpu_torch.tempo, track_analyser_tpu_torch.features, "
         "track_analyser_tpu_torch.stereo, track_analyser_tpu_torch.harmony, "
         "track_analyser_tpu_torch.analysis.harmonic, track_analyser_tpu_torch.models.downbeat_net, "
-        "chip_smoke; "
+        "track_analyser_tpu_torch.native.binding, track_analyser_tpu_torch.native.build, "
+        "track_analyser_tpu_torch.io.flac, track_analyser_tpu_torch.io.vorbis, "
+        "track_analyser_tpu_torch.io.mpg123, track_analyser_tpu_torch.io.ffmpeg, "
+        "track_analyser_tpu_torch.profiling, chip_smoke; "
         "from track_analyser_tpu_torch.analysis import beats, loudness, structure, harmonic; "
         "harmonic.analyse_harmony; "
         "assert 'jax' not in sys.modules, 'jax imported'; "

@@ -1,11 +1,14 @@
 """The port's host transports against the JAX package's, on the CPU.
 
 The quantisers, the packers, the host-exact stereo values and the bucket
-arithmetic of the "int8", "int16", "ms", "ms6" and "ms5" transports are
-numpy copies in the port; each is held bit for bit against the JAX
-function on the same input (and the sub-byte quantisers also against the
-JAX package's native C++ ones). The mid-only payloads must equal the JAX
-package's chunked parts concatenated (its zero chunks materialised), and
+arithmetic of the "int8", "int16", "ms", "ms6" and "ms5" transports: the
+port stages through its native library and keeps numpy copies of the
+JAX package's quantisers as their plain versions; each is held bit for
+bit against the JAX function on the same input (and the sub-byte
+quantisers also against the JAX package's native C++ ones). With the
+plain versions swapped in for the native ones, the mid-only payloads
+must equal the JAX package's numpy-staged chunked parts concatenated
+(its zero chunks materialised), and
 the device-side decoders must reproduce the JAX decoders exactly: the
 sub-byte decode ``base + int32-cumsum(codes) * step`` is a multiply and
 an add on both sides (XLA's CPU lowering does not contract it into a
@@ -88,6 +91,15 @@ def test_host_stereo_widths_are_bit_exact(n, channels) -> None:
     )
 
 
+def _plain_quantisers(monkeypatch) -> None:
+    """Stage through the port's numpy plain versions instead of its native
+    library, as the JAX package stages without its own."""
+
+    monkeypatch.setattr(tb.native_binding, "quantise_mid", lambda x, nb, _block: tb._quantise_mid_range(x, x.shape[1], 0, nb))
+    monkeypatch.setattr(tb.native_binding, "quantise_mid6", lambda x, nb, _block: tb._quantise_mid6_range(x, x.shape[1], 0, nb))
+    monkeypatch.setattr(tb.native_binding, "quantise_mid5", lambda x, nb, _block: tb._quantise_mid5_range(x, x.shape[1], 0, nb))
+
+
 _LENGTHS = [1, 32_768, 100_000, 2_000_000, 1 << 21, (1 << 21) + 1, 44_100 * 181, 44_100 * 600,
             44_100 * 1_500, 44_100 * 1_600, 44_100 * 3_000]
 
@@ -104,9 +116,10 @@ def test_ms_bucket_arithmetic_is_exact() -> None:
 @pytest.mark.parametrize("quantiser", ["numpy", "native"])
 @pytest.mark.parametrize("seconds, stereo", [(5.5, True), (4.0, False), (8.0, True)])
 def test_ms_payload_equals_jax_parts_concatenated(seconds, stereo, quantiser, monkeypatch) -> None:
-    """Against the JAX package's numpy quantiser, bit for bit; against its
-    native C++ one, the payload bit for bit and the float64 stereo sums
-    to 1e-12 (the C++ loop adds in another order)."""
+    """Both packages on their numpy quantisers, bit for bit; both on
+    their native C++ ones, bit for bit too where the JAX package's
+    library is built (its float64 stereo sums held to 1e-12 against the
+    numpy-staged JAX sums otherwise: the C++ loop adds in another order)."""
 
     if quantiser == "numpy":
         from track_analyser_tpu.native import binding as native_binding
@@ -115,6 +128,7 @@ def test_ms_payload_equals_jax_parts_concatenated(seconds, stereo, quantiser, mo
             raise RuntimeError("native quantiser switched off for this test")
 
         monkeypatch.setattr(native_binding, "quantise_mid", _unavailable)
+        _plain_quantisers(monkeypatch)
     audio, jax_audio = _audio_pair(int(seconds * SR), stereo, seed=5)
     bucket = tb.ms_bucket_length(len(audio.samples))
     (mid, scales), (stats, widths), n_valid = tb._stage_payload_ms(audio, bucket)
@@ -266,6 +280,7 @@ def test_subbyte_payload_equals_jax_parts(transport, bits, stereo, quantiser, mo
     if quantiser == "numpy":
         for name in ("quantise_mid", "quantise_mid6", "quantise_mid5"):
             monkeypatch.setattr(native_binding, name, lambda *a, **k: None)
+        _plain_quantisers(monkeypatch)
     audio, jax_audio = _audio_pair(int(5.5 * SR), stereo, seed=5)
     bucket = tb.ms_bucket_length(len(audio.samples))
     (vals, scales, bases), (stats, widths), n_valid = tb._stage_payload_ms(audio, bucket, bits)

@@ -8,11 +8,15 @@ and the library sweep ``parallel.batch.analyse_library``, both through
 one fused graph with a leading batch axis, with the float32, int16, int8
 and "ms" transports; stem separation (``use_stems=True``: the band-split
 mask net blended with the DSP separator) and artefact rendering
-(``output_dir``: report.json, CSVs, HTML, MIDI, plots). HPSS's two
-sliding medians run through a hand-written CUDA kernel
-(``csrc/median31.cu``), and the fused |STFT| through another
-(``csrc/stft_mag.cu``, when ``TA_PALLAS_STFT=1``); everything else is
-plain PyTorch.
+(``output_dir``: report.json, CSVs, HTML, MIDI, plots); the per-module
+path (``fused=False``), the ``ms6``/``ms5`` transports and the CLI; the
+decode ladder (WAV/AIFF, FLAC, Ogg, MP3, ffmpeg) and the native host
+library (``native/``: WAV/FLAC decode and the transport quantisers, C++
+built at first use); ``profiling`` and the
+``TRACK_ANALYSER_TPU_DEBUG_NANS=1`` sanitizer. HPSS's two sliding
+medians run through a hand-written CUDA kernel (``csrc/median31.cu``),
+and the fused |STFT| through another (``csrc/stft_mag.cu``, when
+``TA_PALLAS_STFT=1``); everything else on the device is plain PyTorch.
 
 This package imports torch, numpy and scipy, never jax.
 """

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
-from ..device import resolve_device
+from ..device import check_nans, resolve_device
 from ..ops.loudness import integrated_lufs, rms_db_curve
 from ..ops.resample import oversampled_peak
 from ..utils import AudioInput, seed_everything
@@ -61,7 +61,7 @@ def _windowed_loudness(
     frame_length, hop_length = _window_params(sample_rate, meter_block_size)
     padded, n = _bucket_pad(samples)
     with torch.inference_mode():
-        out = rms_db_curve(torch.from_numpy(padded).to(device), frame_length, hop_length)
+        out = check_nans("ops.loudness.rms_db_curve", rms_db_curve(torch.from_numpy(padded).to(device), frame_length, hop_length))
     return out.cpu().numpy().astype(np.float64)[: 1 + n // hop_length]
 
 
@@ -97,9 +97,12 @@ def measure_loudness(
     padded, n = _bucket_pad(samples)
     with torch.inference_mode():
         integrated = float(
-            _integrated_graph(
-                torch.from_numpy(padded).to(dev), n,
-                sample_rate=sample_rate, block=float(meter_block_size),
+            check_nans(
+                "analysis.loudness._integrated_graph",
+                _integrated_graph(
+                    torch.from_numpy(padded).to(dev), n,
+                    sample_rate=sample_rate, block=float(meter_block_size),
+                ),
             )
         )
     # Loudness range as the momentary distribution's 5-95 percentile spread.
@@ -131,7 +134,9 @@ def true_peak_dbtp(
         dev = resolve_device(device)
         padded, _n = _bucket_pad(samples)
         with torch.inference_mode():
-            peak = float(oversampled_peak(torch.from_numpy(padded).to(dev), oversample))
+            peak = float(
+                check_nans("ops.resample.oversampled_peak", oversampled_peak(torch.from_numpy(padded).to(dev), oversample))
+            )
     return float(20.0 * np.log10(peak + 1e-12))
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_SEED
-from ..device import resolve_device
+from ..device import check_nans, resolve_device
 from ..io.codecs import AudioDecodeError, write_wav
 from ..ops.filters import hpss
 from ..ops.stft import fft_frequencies, istft, stft
@@ -140,7 +140,7 @@ def separate_stems_arrays(
     with torch.inference_mode():
         y = torch.from_numpy(padded).to(dev)
         out = _dsp_separate_body(y, sr=sample_rate, n_samples=padded.shape[-1], f_valid=f_valid)
-        out = out[..., :n].cpu().numpy()
+        out = check_nans("analysis.stems._dsp_separate_body", out)[..., :n].cpu().numpy()
     if arr.ndim == 2:
         return {s: out[:, i] for i, s in enumerate(_NAMES)}  # out is (C, 4, n)
     return dict(zip(_NAMES, out))

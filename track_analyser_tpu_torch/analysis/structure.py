@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
-from ..device import resolve_device
+from ..device import check_nans, resolve_device
 from ..ops.peaks import peak_pick
 from ..utils import AudioInput, seed_everything
 from .beats import BeatAnalysis
@@ -101,6 +101,7 @@ def analyse_structure(
             frame_length=frame_length,
             hop_length=hop_length,
         )
+        check_nans("analysis.structure._structure_graph", outs)
         novelty, energy_novelty, perc_col, harm_col = (
             o.cpu().numpy().astype(np.float64)[:f_valid] for o in outs
         )

@@ -14,7 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import check_nans, resolve_device
 from .ops.spectral import spectral_centroid, spectral_rolloff
 from .ops.stft import fft_frequencies, magnitude
 from .utils import AudioInput
@@ -103,9 +103,12 @@ def _run(samples, sr: int, n_fft: int, hop_length: int, roll_percent: float = 0.
     n = mono.size
     padded, f_valid = pad_to_bucket(mono, hop=hop_length)
     with torch.inference_mode():
-        ltas, centroid, rolloff = _features_graph(
-            torch.from_numpy(padded).to(dev), n,
-            sr=sr, n_fft=n_fft, hop_length=hop_length, roll_percent=float(roll_percent),
+        ltas, centroid, rolloff = check_nans(
+            "features._features_graph",
+            _features_graph(
+                torch.from_numpy(padded).to(dev), n,
+                sr=sr, n_fft=n_fft, hop_length=hop_length, roll_percent=float(roll_percent),
+            ),
         )
         return (
             ltas.cpu().numpy().astype(np.float64),

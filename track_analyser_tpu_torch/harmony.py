@@ -26,7 +26,7 @@ import torch
 
 from .analysis.beats import BeatAnalysis, DownbeatAnalysis
 from .config import DEFAULT_CONFIG
-from .device import resolve_device
+from .device import check_nans, resolve_device
 from .ops.chroma import chroma_from_power, chroma_stft_filterbank, cq_chroma_tribank
 from .ops.stft import magnitude
 from .utils import AudioInput, deterministic_rng, seed_everything
@@ -179,7 +179,10 @@ def _compute_chromas(
     dev = resolve_device(device)
     padded, f_valid = pad_to_bucket(y, hop=hop_length)
     with torch.inference_mode():
-        cq, st = _chroma_graph(torch.from_numpy(padded).to(dev), sr=sr, hop_length=hop_length)
+        cq, st = check_nans(
+            "harmony._chroma_graph",
+            _chroma_graph(torch.from_numpy(padded).to(dev), sr=sr, hop_length=hop_length),
+        )
     return (
         cq.cpu().numpy().astype(np.float64)[:, :f_valid],
         st.cpu().numpy().astype(np.float64)[:, :f_valid],
@@ -197,7 +200,8 @@ def _spectral_balance(audio: AudioInput, *, device="cuda") -> SpectralBalance:
             sr=audio.sample_rate,
             n_fft=DEFAULT_CONFIG.balance_n_fft,
             hop_length=DEFAULT_CONFIG.balance_hop,
-        ).cpu().numpy()
+        )
+        sums = check_nans("harmony._balance_graph", sums).cpu().numpy()
     total, low, mid, high = (float(v) for v in sums)
     if total <= 0:
         return SpectralBalance(0.0, 0.0, 0.0)
@@ -233,7 +237,10 @@ def _stereo_image(audio: AudioInput, *, device="cuda") -> StereoImage:
     dev = resolve_device(device)
     padded, _ = pad_to_bucket(samples[:2])
     with torch.inference_mode():
-        corr, balance = _stereo_image_graph(torch.from_numpy(padded).to(dev), samples.shape[-1])
+        corr, balance = check_nans(
+            "harmony._stereo_image_graph",
+            _stereo_image_graph(torch.from_numpy(padded).to(dev), samples.shape[-1]),
+        )
     return StereoImage(correlation=float(corr), balance=float(balance))
 
 

@@ -1,11 +1,29 @@
-"""WAV and AIFF codecs (host, numpy).
+"""Audio decode: the JAX package's codec ladder, and the WAV/AIFF codecs.
 
-WAV (PCM 8/16/24/32, IEEE float32/64, WAVE_FORMAT_EXTENSIBLE, RIFF and
-big-endian RIFX) and AIFF/AIFF-C (PCM 16/24/32 big-endian, 'sowt'
-little-endian, fl32/fl64) decode here, with the JAX package's parsers;
-``write_wav`` writes PCM 16/24/32 or float WAV. Other containers (FLAC,
-MP3, Ogg and the ffmpeg tier) are not ported yet and raise
-``AudioDecodeError``.
+``decode_file`` sniffs a file's first bytes and tries the tiers in the
+JAX package's order:
+
+1. the native WAV decoder (``native/binding.decode``; ``libta_native``
+   builds at first use and is required);
+2. the numpy WAV/RIFX or AIFF/AIFF-C codec here, or FLAC (the native
+   decoder, then the numpy one in ``io/flac.py``), by the container;
+3. Ogg Vorbis through the system libvorbisfile (``io/vorbis.py``), on
+   ``OggS``;
+4. MPEG audio through the system libmpg123 (``io/mpg123.py``), on an ID3
+   tag, a frame sync or an .mp3/.mp2/.mpga suffix;
+5. the catch-all ffmpeg tier (``io/ffmpeg.py``, libavformat);
+
+then raises ``AudioDecodeError("Could not decode audio file: <path>")``
+with the first-party codec's error as ``__cause__``. A tier is skipped
+where its system library is absent; the ladder steps down where a
+library declines a file or a codec raises a decode error
+(``DECODE_ERRORS``). Any other exception, such as a ``TypeError`` from a
+binding, propagates.
+
+The WAV codec reads PCM 8/16/24/32, IEEE float32/64 and
+WAVE_FORMAT_EXTENSIBLE in RIFF and big-endian RIFX containers; AIFF
+reads PCM 16/24/32 big-endian, 'sowt' little-endian and fl32/fl64.
+``write_wav`` writes PCM 16/24/32 or float WAV.
 """
 
 from __future__ import annotations
@@ -16,7 +34,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-__all__ = ["decode_file", "decode_wav", "write_wav", "AudioDecodeError"]
+__all__ = ["decode_file", "decode_wav", "write_wav", "AudioDecodeError", "DECODE_ERRORS"]
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -25,6 +43,12 @@ _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 class AudioDecodeError(RuntimeError):
     """Raised when no codec can decode the given file."""
+
+
+# What a codec raises on a malformed or truncated file: a parser may fail
+# before its own checks (struct.error, a ragged frombuffer, an index past
+# the end). The decode ladder steps down on these and nothing else.
+DECODE_ERRORS = (AudioDecodeError, OSError, struct.error, ValueError, IndexError)
 
 
 def _pcm24_to_float32(raw: bytes) -> np.ndarray:
@@ -220,10 +244,13 @@ def _decode_aiff(path: str | Path) -> Tuple[np.ndarray, int, Dict[str, object]]:
 
 
 def decode_file(path: str | Path) -> Tuple[np.ndarray, int, Dict[str, object]]:
-    """Decode ``path`` by sniffing its container: WAV/RIFX or AIFF.
+    """Decode ``path`` through the codec ladder (see the module docstring).
 
     Returns ``(data, sr, meta)`` with ``data`` channel-major float32.
     """
+
+    from ..native import binding
+    from . import ffmpeg, flac, mpg123, vorbis
 
     file_path = str(path)
     try:
@@ -231,20 +258,44 @@ def decode_file(path: str | Path) -> Tuple[np.ndarray, int, Dict[str, object]]:
             head = fh.read(12)
     except OSError as exc:
         raise AudioDecodeError(f"Could not decode audio file: {file_path}") from exc
-    decoder = {b"RIFF": decode_wav, b"RIFX": decode_wav, b"FORM": _decode_aiff}.get(head[0:4])
-    if decoder is not None:
+
+    result = binding.decode(file_path)
+    if result is not None:
+        return result
+
+    first_party_error: "Exception | None" = None
+    try:
+        if head[0:4] in (b"RIFF", b"RIFX"):
+            return decode_wav(file_path)
+        if head[0:4] == b"FORM":
+            return _decode_aiff(file_path)
+        if head[0:4] == b"fLaC":
+            result = binding.decode_flac(file_path)
+            return result if result is not None else flac.decode_flac(file_path)
+    except DECODE_ERRORS as exc:
+        # A valid container the first-party codec does not cover (ADPCM in
+        # WAV, say) may still decode through the ffmpeg tier below.
+        first_party_error = exc
+
+    if head[0:4] == b"OggS" and vorbis.available():
         try:
-            return decoder(file_path)
-        except (AudioDecodeError, OSError, struct.error, ValueError, IndexError) as exc:
-            # a malformed header may fail a parser before its own checks
-            # (struct.error, a ragged frombuffer); the decoder's error is
-            # the cause, the message the JAX package's
-            raise AudioDecodeError(f"Could not decode audio file: {file_path}") from exc
-    raise AudioDecodeError(
-        f"Could not decode audio file: {file_path}: the PyTorch port decodes WAV "
-        "and AIFF only; FLAC, MP3, Ogg and the ffmpeg tier are not ported yet "
-        "(ROADMAP.md Queue 1 item 14, the decode tiers)"
-    )
+            return vorbis.decode_ogg(file_path)
+        except DECODE_ERRORS:
+            pass
+
+    looks_mpeg = head[0:3] == b"ID3" or (len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0)
+    if (looks_mpeg or Path(file_path).suffix.lower() in (".mp3", ".mp2", ".mpga")) and mpg123.available():
+        try:
+            return mpg123.decode_mp3(file_path)
+        except DECODE_ERRORS:
+            pass
+
+    if ffmpeg.available():
+        result = ffmpeg.decode(file_path)
+        if result is not None:
+            return result
+
+    raise AudioDecodeError(f"Could not decode audio file: {file_path}") from first_party_error
 
 
 def write_wav(

@@ -103,13 +103,15 @@ def _accent_curves(samples: np.ndarray, sample_rate: int, device) -> tuple:
     trimmed to the valid frames (the dB floor of the flux sits below the
     global maximum, which quiet padding cannot raise)."""
 
-    from ..device import resolve_device
+    from ..device import check_nans, resolve_device
     from ..substrate import pad_to_bucket
 
     dev = resolve_device(device)
     padded, f_valid = pad_to_bucket(np.asarray(samples, dtype=np.float32), hop=_HOP)
     with torch.inference_mode():
-        curves = _accent_graph(torch.from_numpy(padded).to(dev), sr=sample_rate)
+        curves = check_nans(
+            "models.downbeat._accent_graph", _accent_graph(torch.from_numpy(padded).to(dev), sr=sample_rate)
+        )
     return tuple(c.cpu().numpy().astype(np.float64)[:f_valid] for c in curves)
 
 

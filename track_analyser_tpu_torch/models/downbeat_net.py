@@ -199,7 +199,7 @@ def downbeat_activation(
     signal padded to its bucket, one lane of ``activation_graph``, trimmed
     to the valid frames."""
 
-    from ..device import resolve_device
+    from ..device import check_nans, resolve_device
     from ..substrate import pad_to_bucket
 
     dev = resolve_device(device)
@@ -212,4 +212,4 @@ def downbeat_activation(
             torch.tensor([n], device=dev),
             sr=sr,
         )
-    return probs[0].cpu().numpy()[:f_valid]
+    return check_nans("models.downbeat_net.activation_graph", probs)[0].cpu().numpy()[:f_valid]

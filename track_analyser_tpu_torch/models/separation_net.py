@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
+from ..device import check_nans, resolve_device
 from ..ops.stft import istft, stft
 
 __all__ = [
@@ -245,7 +245,7 @@ def separate_signal(
     if y.dim() != 1:
         raise ValueError(f"separate_signal takes a mono (n,) signal, got {tuple(y.shape)}")
     with torch.inference_mode():
-        return _separate_body(model, y, n_samples, f_valid)
+        return check_nans("models.separation_net._separate_body", _separate_body(model, y, n_samples, f_valid))
 
 
 def separate_signal_multi(
@@ -258,7 +258,7 @@ def separate_signal_multi(
     if y.dim() != 2:
         raise ValueError(f"separate_signal_multi takes (C, n) channels, got {tuple(y.shape)}")
     with torch.inference_mode():
-        return _separate_body(model, y, n_samples, f_valid)
+        return check_nans("models.separation_net._separate_body", _separate_body(model, y, n_samples, f_valid))
 
 
 def run_from_checkpoint(

@@ -2,10 +2,12 @@
 
 Each source under ``csrc/`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/torch_kernels/`` (named by a hash of the source, so an edited
-source builds anew) and loaded with ``ctypes``. Nothing here runs at
-import time; a host without ``nvcc`` raises when a kernel is first
-needed.
+``build/torch_kernels/`` (named by a hash of the source and the flags, so
+an edited source builds anew) and loaded with ``ctypes``. Nothing here
+runs at import time; a host without ``nvcc`` raises when a kernel is
+first needed. ``build_library`` is the same scheme for any compiler: the
+native host library (``native/build.py``) builds through it with the
+system C++ compiler.
 """
 
 from __future__ import annotations
@@ -18,12 +20,19 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, Sequence
 
-__all__ = ["CSRC", "SOURCES", "nvcc", "build", "build_text", "build_all", "load"]
+__all__ = [
+    "CSRC", "SOURCES", "nvcc", "build", "build_text", "build_all", "load",
+    "build_library",
+]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
 SOURCES = ("median31.cu", "stft_mag.cu")
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -41,33 +50,63 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def _compile(src: Path, lib_path: Path) -> str:
-    """nvcc ``src`` into ``lib_path`` (written under another name, then
-    renamed, so a half-written library is never loaded). Returns the log."""
+def _compile_library(
+    command: "Sequence[str]", sources: "Sequence[Path]", lib_path: Path, link: "Sequence[str]" = ()
+) -> str:
+    """Run ``command -o <tmp> sources link`` and rename the output to
+    ``lib_path``: a half-written library is never loaded, and several
+    processes building at once (test workers) do not collide. Raises with
+    the compiler's log on failure; returns the log."""
 
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [
-        nvcc(), *_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src),
-    ]
+    cmd = [*command, "-o", str(tmp), *(str(s) for s in sources), *link]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc {src.name} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        names = " ".join(Path(s).name for s in sources)
+        raise RuntimeError(
+            f"{Path(command[0]).name} {names} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
     os.replace(tmp, lib_path)
     return proc.stdout + proc.stderr
 
 
-def build(source: str) -> tuple[Path, str]:
-    """Compile ``csrc/<source>`` unless a library of this exact source
-    already exists. Returns (library path, compiler log; "" if cached)."""
+def build_library(
+    stem: str,
+    sources: "Sequence[Path]",
+    compiler: "Callable[[], str]",
+    flags: "Sequence[str]",
+    link: "Sequence[str]" = (),
+    key: str = "",
+) -> tuple[Path, str]:
+    """Compile ``sources`` with ``compiler()`` and ``flags`` into
+    ``build/torch_kernels/lib<stem>_<hash>.so`` unless it exists, the hash
+    taken over the sources' bytes, the flags, ``link`` and ``key`` (what
+    else the build depends on); the compiler is looked up only to build.
+    Returns (library path, compiler log; "" if cached)."""
 
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    digest.update("\0".join([*flags, *link, key]).encode())
+    lib_path = _BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return lib_path, _compile(src, lib_path)
+    return lib_path, _compile_library([compiler(), *flags], sources, lib_path, link)
+
+
+def _compile(src: Path, lib_path: Path) -> str:
+    """nvcc ``src`` into ``lib_path``. Returns the log."""
+
+    return _compile_library([nvcc(), *_NVCC_FLAGS], [src], lib_path)
+
+
+def build(source: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` unless a library of this exact source
+    and these flags already exists. Returns (library path, compiler log;
+    "" if cached)."""
+
+    return build_library(Path(source).stem, [CSRC / source], nvcc, _NVCC_FLAGS)
 
 
 def build_text(stem: str, text: str) -> tuple[Path, str]:

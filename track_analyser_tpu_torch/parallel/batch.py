@@ -16,12 +16,17 @@ axis).
   lane, run the host finishers and (with ``output_dir``) render each
   track's artefacts.
 
-Transports (host -> device payloads), numpy copies of the reference's
-quantisers: "float32", "int16", "int8" (blockwise int8 per channel),
-"ms" (the mid channel only, as blockwise int8, with every side-derived
-output computed exactly on the host), and "ms6" / "ms5" (the mid
-channel as packed 6- or 5-bit codes, per block raw or delta-coded, in
-the reference's byte format). The reference's relay machinery (chunked
+Transports (host -> device payloads): "float32", "int16", "int8"
+(blockwise int8 per channel), "ms" (the mid channel only, as blockwise
+int8, with every side-derived output computed exactly on the host), and
+"ms6" / "ms5" (the mid channel as packed 6- or 5-bit codes, per block raw
+or delta-coded, in the reference's byte format). Staging quantises
+through the native host library (``native/binding``, the JAX package's
+C++ quantisers, which release the GIL); the numpy functions here
+(``_quantise_i16``, ``_quantise_i8``, ``_quantise_mid_range``,
+``_quantise_mid6_range``, ``_quantise_mid5_range``) are their plain
+versions, which the tests hold the library against bit for bit, and
+nothing on the main path calls them. The reference's relay machinery (chunked
 parts, zero-chunk markers, device-side growth, executable sharing) is
 not ported: the port uploads one buffer per payload part, the mid
 payload covering the whole bucket.
@@ -48,10 +53,11 @@ from ..analysis import beats as beats_mod
 from ..analysis import loudness as loudness_mod
 from ..analysis import structure as structure_mod
 from ..config import DEFAULT_CONFIG, DEFAULT_SEED
-from ..device import resolve_device
+from ..device import check_nans, resolve_device
 from ..features import FeatureAnalysis, FeatureSeries, LongTermAverageSpectrum
 from ..models import downbeat as downbeat_model
 from ..models import downbeat_net
+from ..native import binding as native_binding
 from ..ops import cuda_build, fused_stft
 from ..ops.stft import fft_frequencies, hann_window
 from ..pipeline import TrackAnalysisResult
@@ -461,17 +467,18 @@ def _dequantise_subbyte(
 
 
 def _stage_payload_i16(audio: AudioInput, n_bucket: int) -> tuple[tuple, int]:
-    """((2, n_bucket) int16,) payload + n_valid."""
+    """((2, n_bucket) int16,) payload + n_valid: the native pad + quantise,
+    ``_quantise_i16`` of ``_pad_track`` bit for bit."""
 
-    stereo, n_valid = _pad_track(audio, n_bucket)
-    return (_quantise_i16(stereo),), n_valid
+    payload = native_binding.quantise_i16_stereo(_source_channels(audio), n_bucket)
+    return (payload,), len(audio.samples)
 
 
 def _stage_payload_i8(audio: AudioInput, n_bucket: int) -> tuple[tuple, int]:
-    """(values (2, n_bucket) int8, scales (2, n_bucket/_I8_BLOCK)) + n_valid."""
+    """(values (2, n_bucket) int8, scales (2, n_bucket/_I8_BLOCK)) + n_valid:
+    the native pad + quantise, ``_quantise_i8`` of ``_pad_track`` bit for bit."""
 
-    stereo, n_valid = _pad_track(audio, n_bucket)
-    return _quantise_i8(stereo), n_valid
+    return native_binding.quantise_i8(_source_channels(audio), n_bucket, _I8_BLOCK), len(audio.samples)
 
 
 def ms_bucket_length(n: int) -> int:
@@ -776,10 +783,10 @@ def _stage_payload_ms(audio: AudioInput, n_bucket: int, bits: int = 8) -> tuple[
     packed codes (3/4 or 5/8 of n_bucket bytes), scales and bases, one
     each per block of ``_ms_block(bits)``).
 
-    The quantiser covers ``_ms_quantise_len`` samples; the rest of the
-    bucket is zero bytes with zero scales and bases, which decode to
-    silence (the reference ships those as zero chunks). ``widths`` is
-    None for a mono source, whose device widths are exact."""
+    The native quantiser (carry 0) covers ``_ms_quantise_len`` samples;
+    the rest of the bucket is zero bytes with zero scales and bases, which
+    decode to silence (the reference ships those as zero chunks).
+    ``widths`` is None for a mono source, whose device widths are exact."""
 
     n = len(audio.samples)
     channels = _source_channels(audio)
@@ -787,11 +794,11 @@ def _stage_payload_ms(audio: AudioInput, n_bucket: int, bits: int = 8) -> tuple[
         channels = channels[None, :]
     qlen = _ms_quantise_len(n, n_bucket)
     if bits == 8:
-        vals_q, scales_q, stats = _quantise_mid_range(channels, n, 0, qlen)
+        vals_q, scales_q, stats = native_binding.quantise_mid(channels, qlen, _I8_BLOCK)
         bases_q = None
     else:
-        quantise = _quantise_mid6_range if bits == 6 else _quantise_mid5_range
-        vals_q, scales_q, bases_q, stats, _carry = quantise(channels, n, 0, qlen)
+        quantise = native_binding.quantise_mid6 if bits == 6 else native_binding.quantise_mid5
+        vals_q, scales_q, bases_q, stats, _carry = quantise(channels, qlen, _ms_block(bits))
     vals = np.zeros(_ms_payload_bytes(0, n_bucket, bits)[1], dtype=vals_q.dtype)
     vals[: vals_q.shape[0]] = vals_q
     n_blocks = n_bucket // _ms_block(bits)
@@ -885,12 +892,14 @@ def _core_graph(stereo: torch.Tensor, n_valid: torch.Tensor, *, sr: int) -> tupl
     when the bundled checkpoint exists) for a batch: stereo (B, 2, n),
     n_valid (B,). Every output has a leading batch axis."""
 
-    packed = pack_outputs(full_track_graph(stereo, n_valid, sr=sr))
+    out = full_track_graph(stereo, n_valid, sr=sr)
     net = _bundled_net(stereo.device)
-    if net is not None:
-        prob = downbeat_net.activation_graph(net, stereo.mean(dim=1), n_valid, sr=sr)
-        return packed + (prob,)
-    return packed
+    if net is None:
+        check_nans("parallel.batch._core_graph", out)
+        return pack_outputs(out)
+    prob = downbeat_net.activation_graph(net, stereo.mean(dim=1), n_valid, sr=sr)
+    check_nans("parallel.batch._core_graph", {**out, "net_prob": prob})
+    return pack_outputs(out) + (prob,)
 
 
 def _decode_payload(transport: str, parts: tuple) -> torch.Tensor:
@@ -1147,6 +1156,9 @@ def analyse_library(
     dev = resolve_device(device)
     n_lane = max(1, int(device_batch))
     bucket_for = _bucket_for(transport)
+    # Decode and staging need the native host library: a failed build
+    # raises here, once, and is never recorded as every track's failure.
+    native_binding.load()
 
     done: set[str] = set()
     manifest = Path(manifest_path) if manifest_path else None

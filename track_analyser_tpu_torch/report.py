@@ -26,7 +26,7 @@ from typing import Dict, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import check_nans, resolve_device
 from .ops.mel import mel_filterbank, melspectrogram_from_power
 from .ops.onset import onset_strength_from_mel, tempogram_prepadded
 from .ops.stft import magnitude
@@ -417,8 +417,9 @@ def _plot_tempogram(result: TrackAnalysisResult, output_dir: Path, device: torch
 
         padded, f_valid = pad_to_bucket(y, hop=hop)
         with torch.inference_mode():
-            tgram = _tempogram_graph(
-                torch.from_numpy(padded).to(device), y.size, sr=sr, hop_length=hop
+            tgram = check_nans(
+                "report._tempogram_graph",
+                _tempogram_graph(torch.from_numpy(padded).to(device), y.size, sr=sr, hop_length=hop),
             )[:, :f_valid]
         tgram = tgram.cpu().numpy().astype(float)
     else:

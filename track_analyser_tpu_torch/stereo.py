@@ -16,7 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import check_nans, resolve_device
 from .ops.stft import fft_frequencies, stft
 from .utils import AudioInput
 
@@ -145,7 +145,7 @@ def _mid_side(pair: np.ndarray, device) -> tuple[float, float]:
     dev = resolve_device(device)
     padded, n = _bucket_pad_pair(pair)
     with torch.inference_mode():
-        mid, side = _ms_graph(torch.from_numpy(padded).to(dev), n).cpu().numpy()
+        mid, side = check_nans("stereo._ms_graph", _ms_graph(torch.from_numpy(padded).to(dev), n)).cpu().numpy()
     return float(mid), float(side)
 
 
@@ -196,7 +196,8 @@ def frequency_dependent_width(
         widths = _width_graph(
             torch.from_numpy(padded).to(dev), n, sr=sample_rate, n_fft=n_fft,
             hop_length=hop_length, band_edges=edges,
-        ).cpu().numpy().astype(np.float64)
+        )
+        widths = check_nans("stereo._width_graph", widths).cpu().numpy().astype(np.float64)
     # Bands containing no FFT bin report width 0.
     freqs = fft_frequencies(sample_rate, n_fft)
     by_name = {

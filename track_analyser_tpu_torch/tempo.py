@@ -282,13 +282,15 @@ def _padded_envelope(y: np.ndarray, sr: int, hop_length: int, device) -> np.ndar
 
     import torch
 
-    from .device import resolve_device
+    from .device import check_nans, resolve_device
     from .substrate import pad_to_bucket
 
     dev = resolve_device(device)
     padded, f_valid = pad_to_bucket(np.asarray(y, dtype=np.float32), hop=hop_length)
     with torch.inference_mode():
-        env = _envelope_graph(torch.from_numpy(padded).to(dev), sr=sr, hop_length=hop_length)
+        env = check_nans(
+            "tempo._envelope_graph", _envelope_graph(torch.from_numpy(padded).to(dev), sr=sr, hop_length=hop_length)
+        )
     return env.cpu().numpy().astype(np.float64)[:f_valid]
 
 
