@@ -95,7 +95,25 @@ Phases (any failure exits non-zero and prints no result line):
      (BPM 118 +- 0.1, the WAV's key); an ms5 sweep at device_batch 4 over
      the mixed-format files, each lane against its batch-1 analyse_track;
      a StageTimer report of a warm per-module call and a device_trace of
-     a warm fused call that names the median kernel.
+     a warm fused call that names the median kernel;
+ 15. sequence sharding: analyse_track_sharded on the 181 s WAV at world 1
+     (nccl: the halo code with no neighbours) and world 2 (gloo, both
+     ranks on the one card), ranks spawned by parallel/mesh.spawn, cold
+     and warm: each rank's median launches +1 per axis per call (counted
+     in the rank) and the fused STFT never, each result against the fused
+     float32 path (compare_results, rounding_differs=True) and every
+     rank's result against rank 0's (compare_results), wall times and
+     each rank's peak memory; the medians at each world's per-rank HPSS
+     shape (1025, frames per shard + 2 halos + 1) bit-identical to the
+     plain version, timed beside the bound. A failing rank fails the run;
+ 16. training: one downbeat train_step (GRU, hidden 256, batch 8, 256
+     frames) and one separation_train_step (the v5 widths, batch 4, 1 s)
+     on the card against the same step on the host (loss and parameters /
+     first moments within 1e-5 of their scale), ms per step and peak
+     memory; then python -m track_analyser_tpu_torch.dryrun --world 2
+     --backend gloo (dp analysis against one batched graph, the dp x tp
+     step against one single-process step, the seq-sharded analysis) on
+     the one card.
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1139,6 +1157,191 @@ def decode_phase(card: str, cpu: str, launches: "Launches", path_launches: dict,
     return out
 
 
+def sharded_rank(group, audio, runs: int, card: str) -> dict:
+    """One rank of phase 15: ``analyse_track_sharded`` ``runs`` times (the
+    first cold), each call's kernel launches in this rank (the counts set
+    to 0 first), its wall time and the rank's peak device memory; then,
+    uncounted, the device part alone (``sharded_track_outputs``) and one
+    call under torch.profiler."""
+
+    import torch
+
+    from track_analyser_tpu_torch.parallel import sharded
+
+    launches = Launches()
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    walls, counts = [], []
+    for _ in range(runs):
+        before = launches.read()
+        result, ms = wall_ms(lambda: sharded.analyse_track_sharded(audio, group))
+        after = launches.read()
+        walls.append(ms)
+        counts.append({k: after[k] - before[k] for k in after})
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    n = len(audio.samples)
+    stereo = audio.stereo_samples if audio.stereo_samples is not None else np.stack([audio.samples, audio.samples])
+    _, outputs_ms = wall_ms(lambda: sharded.sharded_track_outputs(stereo, n, audio.sample_rate, group))
+    profiled(f"world {group.size} rank {group.rank}: analyse_track_sharded", lambda: sharded.analyse_track_sharded(audio, group), card)
+    return {
+        "rank": group.rank, "device": str(group.device), "backend": group.backend, "walls_ms": walls,
+        "launches": counts, "peak_mib": peak_mib, "outputs_ms": outputs_ms,
+        "hpss_shape": sharded.hpss_shape(n, audio.sample_rate, group.size), "result": result,
+    }
+
+
+def sharded_phase(card: str, path_launches: dict, main_track: np.ndarray, minmax_per_s: float) -> dict:
+    """Phase 15: ``analyse_track_sharded`` on the 181 s WAV at world 1
+    (nccl) and world 2 (gloo, both ranks on the one card), each rank's
+    median launches, each result against the fused float32 path and every
+    rank's against rank 0's, and the
+    medians at each rank's HPSS shape against their plain version."""
+
+    import torch
+
+    from track_analyser_tpu_torch.io import write_wav
+    from track_analyser_tpu_torch.ops import median
+    from track_analyser_tpu_torch.parallel import batch, mesh
+    from track_analyser_tpu_torch.utils import coerce_audio
+
+    phase("15 sequence sharding: analyse_track_sharded on the 181 s WAV at world 1 (nccl) and world 2 (gloo, one card)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "track_181s.wav"
+        write_wav(path, main_track, SR)
+        audio = coerce_audio(str(path))
+    fused_ms = []
+    for _ in range(2):  # the second call warm
+        fused, ms = wall_ms(lambda: batch.analyse_track_fused(audio, transport="float32", device="cuda"))
+        fused_ms.append(ms)
+    print(f"fused float32 analyse_track_fused on the decoded WAV: {fused_ms[0]:.1f} ms, warm {fused_ms[1]:.1f} ms -- {card}")
+    total = dict.fromkeys(ONCE_PER_AXIS, 0)
+    shapes, walls = {}, {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(sharded_rank, world, (audio, 2, card), backend=backend, device="cuda", timeout_s=600.0)
+        spawn_s = time.perf_counter() - t0
+        for r in ranks:
+            for call, counts in enumerate(r["launches"]):
+                check(counts == ONCE_PER_AXIS, f"world {world} rank {r['rank']} call {call}: launches {counts}, expected {ONCE_PER_AXIS}")
+                for k, v in counts.items():
+                    total[k] += v
+            print(
+                f"world {world} ({r['backend']}) rank {r['rank']} on {r['device']}: cold {r['walls_ms'][0]:.1f} ms, "
+                f"warm {r['walls_ms'][1]:.1f} ms (sharded_track_outputs alone {r['outputs_ms']:.1f} ms), "
+                f"launches per call {json.dumps(r['launches'][-1])}, "
+                f"peak {r['peak_mib']:.0f} MiB, HPSS input {r['hpss_shape']} -- {card}"
+            )
+        walls[world] = max(r["walls_ms"][1] for r in ranks)
+        print(f"world {world}: {spawn_s:.1f} s for the spawn and both calls; warm wall (slowest rank) {walls[world]:.1f} ms "
+              f"against the fused float32 path's {fused_ms[1]:.1f} ms -- {card}")
+        compare_results(ranks[0]["result"], fused, f"sharded world {world} ({backend}) vs fused float32", rounding_differs=True)
+        for r in ranks[1:]:
+            compare_results(r["result"], ranks[0]["result"], f"sharded world {world} ({backend}) rank {r['rank']} vs rank 0")
+        shapes[world] = ranks[0]["hpss_shape"]
+    path_launches["sharded"] = total
+    print(f"sharded launches over both worlds (2 calls each): {json.dumps(total)}")
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    timings = {}
+    for world, shape in shapes.items():
+        x = torch.rand(shape, device="cuda", generator=gen)
+        for axis in (-1, -2):
+            got = median.median31(x, axis)
+            ref = median.median31_reference(x, axis)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            check(torch.equal(got, ref), f"median31 axis {axis} shape {shape}: max |diff| {err}")
+            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
+            bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
+            timings[(world, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            print(
+                f"{REPLACES[axis][0]} at world {world}'s per-rank shape {shape}: bit-identical; kernel {kernel_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
+            )
+        del x, got, ref
+    return timings
+
+
+def training_phase(card: str) -> None:
+    """Phase 16: one downbeat ``train_step`` (GRU, hidden 256, batch 8,
+    256 frames) and one ``separation_train_step`` (v5 widths, batch 4,
+    1 s) on the card against the same step on the host, ms per step and
+    peak memory; then ``dryrun --world 2`` under gloo on the one card."""
+
+    import torch
+
+    from track_analyser_tpu_torch.models import downbeat_net, separation_net, training
+
+    phase("16 training: train_step and separation_train_step on the card vs the host; dryrun --world 2 (gloo, one card)")
+
+    def rel(a, b) -> float:
+        return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-30))
+
+    # ---- downbeat GRU: SGD with momentum --------------------------------------
+    feats, labels = downbeat_net.synthetic_batch(np.random.default_rng(16), batch=8, frames=256, n_mels=128)
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        model = downbeat_net.init_params(hidden=256, generator=torch.Generator().manual_seed(16)).to(dev)
+        model, momentum, loss = downbeat_net.train_step(model, downbeat_net.init_momentum(model), feats, labels)
+        steps[dev] = (float(loss), downbeat_net.params_to_jax(model))
+    worst = max(rel(steps["cuda"][1][k], v) for k, v in steps["cpu"][1].items())
+    check(abs(steps["cuda"][0] - steps["cpu"][0]) <= 1e-5 * abs(steps["cpu"][0]) and worst <= 1e-5,
+          f"downbeat train_step card vs host: loss {steps['cuda'][0]} vs {steps['cpu'][0]}, parameters {worst}")
+    model = downbeat_net.init_params(hidden=256).to("cuda")
+    momentum = downbeat_net.init_momentum(model)
+    f_dev = torch.from_numpy(feats).cuda()
+    l_dev = torch.from_numpy(labels).cuda()
+    downbeat_net.train_step(model, momentum, f_dev, l_dev)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(wall_ms(lambda: downbeat_net.train_step(model, momentum, f_dev, l_dev))[1] for _ in range(5))
+    print(
+        f"downbeat train_step (GRU hidden 256, batch 8, 256 frames): card vs host loss {steps['cuda'][0]:.6f} / "
+        f"{steps['cpu'][0]:.6f}, parameters within {worst:.2e} of their scale; {ms:.2f} ms a step (median of 5), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB -- {card}"
+    )
+
+    # ---- separation net at the v5 widths: Adam ----------------------------------
+    rng = np.random.default_rng(16)
+    stems = np.stack([training.synth_stems(rng, 1.0) for _ in range(4)])
+    mix = stems.sum(axis=1)
+    sep = {}
+    for dev in ("cuda", "cpu"):
+        model = separation_net.init_params(
+            d_model=144, n_blocks=4, dilations=(1, 3, 9, 27), generator=torch.Generator().manual_seed(16)
+        ).to(dev)
+        model, (m, v, _), loss = training.separation_train_step(model, training.init_opt_state(model), mix, stems)
+        sep[dev] = (float(loss), {k: t.cpu().numpy() for k, t in m.items()}, separation_net.params_to_jax(model))
+    m_scale = max(float(np.abs(x).max()) for x in sep["cpu"][1].values())
+    m_err = max(float(np.abs(sep["cuda"][1][k] - x).max()) for k, x in sep["cpu"][1].items()) / m_scale
+    check(abs(sep["cuda"][0] - sep["cpu"][0]) <= 1e-5 * abs(sep["cpu"][0]) and m_err <= 1e-5,
+          f"separation_train_step card vs host: loss {sep['cuda'][0]} vs {sep['cpu'][0]}, first moments {m_err}")
+    model = separation_net.init_params(d_model=144, n_blocks=4, dilations=(1, 3, 9, 27)).to("cuda")
+    opt = training.init_opt_state(model)
+    mix_dev, stems_dev = torch.from_numpy(mix).cuda(), torch.from_numpy(stems).cuda()
+    model, opt, _ = training.separation_train_step(model, opt, mix_dev, stems_dev)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        (model, opt, _), t = wall_ms(lambda: training.separation_train_step(model, opt, mix_dev, stems_dev))
+        times.append(t)
+    print(
+        f"separation_train_step (v5 widths: 144 wide, 4 blocks, dilations 1/3/9/27; batch 4, 1 s): card vs host "
+        f"loss {sep['cuda'][0]:.6f} / {sep['cpu'][0]:.6f}, first moments within {m_err:.2e} of their scale; "
+        f"{statistics.median(times):.2f} ms a step (median of 5), peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB -- {card}"
+    )
+
+    # ---- the dry run: dp analysis, dp x tp step, seq sharding ---------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "track_analyser_tpu_torch.dryrun", "--world", "2", "--backend", "gloo"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900,
+    )
+    print(proc.stdout.strip())
+    check(proc.returncode == 0, f"dryrun --world 2: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    print(f"dryrun --world 2 --backend gloo: exit 0 in {time.perf_counter() - t0:.1f} s -- {card}")
+
+
 def main() -> None:
     import torch
 
@@ -1812,6 +2015,8 @@ def main() -> None:
         decode_phase(card, cpu, launches, path_launches, main_track)
     finally:
         library_dir.cleanup()
+    sharded_timings = sharded_phase(card, path_launches, main_track, minmax_per_s)
+    training_phase(card)
     print(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s")
 
     total = {k: sum(p[k] for p in path_launches.values()) for k in ("median31_time", "median31_freq", "stft_magnitude")}
@@ -1823,11 +2028,13 @@ def main() -> None:
         kernels.append(
             {
                 "name": name, "route": "cuda", "source": MEDIAN_SOURCE, "replaces": replaces,
-                "launches": total[name], "max_abs_err": errs[axis], "ms": kernel_ms, "plain_ms": plain_ms,
+                "launches": total[name], "ms": kernel_ms, "plain_ms": plain_ms,
+                "max_abs_err": max([errs[axis]] + [sharded_timings[(w, axis)]["max_abs_err"] for w in (1, 2)]),
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": list(batch_shape), "launches_by_path": {k: v[name] for k, v in path_launches.items()},
                 "stems_shape": list(STEMS_SHAPE), "stems_ms": stems_ms, "stems_plain_ms": stems_plain_ms,
                 "stems_bound_ms": stems_bound_ms, "stems_bound_by": stems_bound_by,
+                "sharded_per_rank": {f"world {w}": sharded_timings[(w, axis)] for w in (1, 2)},
             }
         )
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = stft_timings[2 * SWEEP_BATCH]

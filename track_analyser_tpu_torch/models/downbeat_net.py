@@ -23,7 +23,8 @@ Public layouts follow the JAX functions: features and logits are
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +42,19 @@ __all__ = [
     "activation_graph",
     "downbeat_activation",
     "model_for",
+    "init_params",
+    "init_tcn_params",
+    "params_to_jax",
+    "init_momentum",
+    "loss_fn",
+    "train_step",
+    "save_checkpoint",
+    "train_downbeat",
+    "synthetic_batch",
+    "logmel_features",
+    "synth_percussion",
+    "synthetic_audio_example",
+    "synthetic_audio_batch",
 ]
 
 N_CLASSES = 3  # none / beat / downbeat
@@ -85,6 +99,11 @@ class DownbeatGRU(nn.Module):
         self.inp = nn.Linear(n_mels, hidden)
         self.gru = nn.GRU(hidden, hidden, num_layers=2, batch_first=True)
         self.out = nn.Linear(hidden, N_CLASSES)
+        for layer in (0, 1):  # the JAX GRU has no recurrent bias
+            bias_hh = getattr(self.gru, f"bias_hh_l{layer}")
+            with torch.no_grad():
+                bias_hh.zero_()
+            bias_hh.requires_grad_(False)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         lanes = feats if feats.dim() == 3 else feats[None]
@@ -150,6 +169,43 @@ def _gru_from_jax(params: Dict[str, np.ndarray]) -> DownbeatGRU:
     return model.eval()
 
 
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def params_to_jax(model: "DownbeatTCN | DownbeatGRU") -> Dict[str, np.ndarray]:
+    """The JAX checkpoint layout of a net's parameters (numpy float32), the
+    inverse of ``params_from_jax``. A GRU whose ``bias_hh`` is not zero
+    has no JAX counterpart and raises ``ValueError``."""
+
+    if isinstance(model, DownbeatTCN):
+        params = {
+            "tcn_in_w": _n(model.inp.weight).T,
+            "tcn_in_b": _n(model.inp.bias),
+            "tcn_out_w": _n(model.out.weight).T,
+            "tcn_out_b": _n(model.out.bias),
+        }
+        for i, (conv, pointwise) in enumerate(zip(model.convs, model.pointwise)):
+            params[f"tcn{i}_w"] = _n(conv.weight)
+            params[f"tcn{i}_b"] = _n(conv.bias)
+            params[f"tcn{i}_pw"] = _n(pointwise.weight).T
+            params[f"tcn{i}_pb"] = _n(pointwise.bias)
+        return {k: np.ascontiguousarray(v) for k, v in params.items()}
+    params = {
+        "in_w": _n(model.inp.weight).T,
+        "in_b": _n(model.inp.bias),
+        "out_w": _n(model.out.weight).T,
+        "out_b": _n(model.out.bias),
+    }
+    for layer in (0, 1):
+        if bool(getattr(model.gru, f"bias_hh_l{layer}").detach().any()):
+            raise ValueError(f"bias_hh_l{layer} is not zero: the JAX GRU has no recurrent bias")
+        params[f"gru{layer}_wx"] = _n(getattr(model.gru, f"weight_ih_l{layer}")).T
+        params[f"gru{layer}_wh"] = _n(getattr(model.gru, f"weight_hh_l{layer}")).T
+        params[f"gru{layer}_b"] = _n(getattr(model.gru, f"bias_ih_l{layer}"))
+    return {k: np.ascontiguousarray(v) for k, v in params.items()}
+
+
 _model_cache: dict = {}
 
 
@@ -213,3 +269,328 @@ def downbeat_activation(
             sr=sr,
         )
     return check_nans("models.downbeat_net.activation_graph", probs)[0].cpu().numpy()[:f_valid]
+
+
+# ---------------------------------------------------------------------------
+# Training: initialisation, the class-weighted loss, SGD with momentum.
+# ---------------------------------------------------------------------------
+
+_CLASS_WEIGHTS = (1.0, 10.0, 20.0)  # beats and downbeats are rare
+
+
+def _glorot(shape: tuple, generator: torch.Generator) -> np.ndarray:
+    """Glorot-normal draw for a JAX-layout array: fan in ``shape[0]``, fan
+    out ``shape[-1]``."""
+
+    scale = math.sqrt(2.0 / (shape[0] + shape[-1]))
+    return (torch.randn(shape, generator=generator) * scale).numpy()
+
+
+def _generator(generator: "torch.Generator | None") -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+def init_params(
+    *, n_mels: int = 128, hidden: int = 256, generator: "torch.Generator | None" = None
+) -> DownbeatGRU:
+    """A GRU net with the JAX ``init_params``'s shapes and scales
+    (Glorot-normal matrices, zero biases), drawn from ``generator`` (the
+    draws are torch's, not JAX's)."""
+
+    gen = _generator(generator)
+    params = {
+        "in_w": _glorot((n_mels, hidden), gen),
+        "in_b": np.zeros(hidden, np.float32),
+        "out_w": _glorot((hidden, N_CLASSES), gen),
+        "out_b": np.zeros(N_CLASSES, np.float32),
+    }
+    for layer in (0, 1):
+        params[f"gru{layer}_wx"] = _glorot((hidden, 3 * hidden), gen)
+        params[f"gru{layer}_wh"] = _glorot((hidden, 3 * hidden), gen)
+        params[f"gru{layer}_b"] = np.zeros(3 * hidden, np.float32)
+    return params_from_jax(params)
+
+
+def init_tcn_params(
+    *, n_mels: int = 128, channels: int = 64, generator: "torch.Generator | None" = None
+) -> DownbeatTCN:
+    """A TCN with the JAX ``init_tcn_params``'s shapes and scales: Glorot
+    projections, He-normal dilated convs (fan ``channels * kernel``), zero
+    biases; drawn from ``generator``."""
+
+    gen = _generator(generator)
+    params = {
+        "tcn_in_w": _glorot((n_mels, channels), gen),
+        "tcn_in_b": np.zeros(channels, np.float32),
+        "tcn_out_w": _glorot((channels, N_CLASSES), gen),
+        "tcn_out_b": np.zeros(N_CLASSES, np.float32),
+    }
+    for i in range(len(TCN_DILATIONS)):
+        fan = channels * TCN_KERNEL
+        params[f"tcn{i}_w"] = (
+            torch.randn((channels, channels, TCN_KERNEL), generator=gen) * math.sqrt(2.0 / fan)
+        ).numpy()
+        params[f"tcn{i}_b"] = np.zeros(channels, np.float32)
+        params[f"tcn{i}_pw"] = _glorot((channels, channels), gen)
+        params[f"tcn{i}_pb"] = np.zeros(channels, np.float32)
+    return params_from_jax(params)
+
+
+def init_momentum(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Zero momentum for every trained parameter of ``model``."""
+
+    return {name: torch.zeros_like(p) for name, p in model.named_parameters() if p.requires_grad}
+
+
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def loss_fn(model: nn.Module, feats_batch, labels_batch) -> torch.Tensor:
+    """Class-weighted softmax cross entropy over a batch of (T, n_mels)
+    examples, (B, T, n_mels) features and (B, T) labels: sum(ce * w) /
+    max(sum(w), 1) with weights 1 / 10 / 20 for none / beat / downbeat."""
+
+    dev = _device_of(model)
+    feats = torch.as_tensor(feats_batch, dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(labels_batch, device=dev).long()
+    logp = torch.log_softmax(model(feats), dim=-1)
+    w = torch.as_tensor(_CLASS_WEIGHTS, dtype=torch.float32, device=dev)[labels]
+    ce = -logp.gather(-1, labels[..., None])[..., 0]
+    return (ce * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+
+def train_step(
+    model: nn.Module,
+    momentum: Dict[str, torch.Tensor],
+    feats_batch,
+    labels_batch,
+    lr: float = 1e-3,
+    beta: float = 0.9,
+) -> Tuple[nn.Module, Dict[str, torch.Tensor], torch.Tensor]:
+    """One SGD-with-momentum step, in place: m <- beta * m + g, then
+    p <- p - lr * m for every trained parameter. Returns the model, the
+    momentum and the loss before the step."""
+
+    model.train()  # cuDNN runs an RNN's backward only in training mode
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, feats_batch, labels_batch)
+    loss.backward()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.requires_grad:
+                m = momentum[name].mul_(beta).add_(p.grad)
+                p.sub_(lr * m)
+    model.zero_grad(set_to_none=True)
+    return model, momentum, loss.detach()
+
+
+def save_checkpoint(model: nn.Module, path) -> None:
+    """An .npz in the JAX key layout (``params_to_jax``), which both
+    packages' ``load_checkpoint`` read."""
+
+    np.savez(path, **params_to_jax(model))
+
+
+def train_downbeat(
+    steps: int = 300,
+    *,
+    batch: int = 8,
+    frames: int = 256,
+    hidden: int = 128,
+    lr: float = 5e-3,
+    seed: int = 0,
+    checkpoint_path=None,
+    log_every: int = 50,
+    device: "str | torch.device" = "cuda",
+):
+    """Train the GRU activation net on procedural click/accent audio on
+    ``device``; returns (model, losses)."""
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    model = init_params(hidden=hidden, generator=torch.Generator().manual_seed(seed)).to(dev)
+    momentum = init_momentum(model)
+    losses = []
+    for step in range(steps):
+        feats, labels = synthetic_audio_batch(rng, batch=batch, frames=frames, device=dev)
+        model, momentum, loss = train_step(model, momentum, feats, labels, lr)
+        losses.append(float(loss))
+        if log_every and step % log_every == 0:
+            print(f"[train_downbeat] step {step} loss {losses[-1]:.4f}", flush=True)
+    if checkpoint_path is not None:
+        save_checkpoint(model, checkpoint_path)
+    return model, losses
+
+
+def synthetic_batch(
+    rng: np.random.Generator, *, batch: int = 8, frames: int = 256, n_mels: int = 128
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Abstract click-pattern batch (fast smoke training)."""
+
+    feats = rng.normal(0.0, 0.1, size=(batch, frames, n_mels)).astype(np.float32)
+    labels = np.zeros((batch, frames), dtype=np.int32)
+    for b in range(batch):
+        period = int(rng.integers(28, 48))
+        phase = int(rng.integers(0, period))
+        meter = int(rng.choice([3, 4]))
+        for i, f in enumerate(range(phase, frames, period)):
+            is_down = (i % meter) == 0
+            labels[b, f] = 2 if is_down else 1
+            amp = 3.0 if is_down else 2.0
+            feats[b, f, :] += amp * np.exp(-np.arange(n_mels) / 40.0)
+            if f + 1 < frames:
+                feats[b, f + 1, :] += 0.5 * amp * np.exp(-np.arange(n_mels) / 40.0)
+    return feats, labels
+
+
+# ---------------------------------------------------------------------------
+# Real-feature path: the net consumes standardised log-mel frames computed
+# by the shared ops, so training audio and inference audio go through the
+# same front end.
+# ---------------------------------------------------------------------------
+
+_SR = 22_050
+
+
+def logmel_features(samples: np.ndarray, sr: int = _SR, *, device: "str | torch.device" = "cuda") -> np.ndarray:
+    """Standardised log-mel frames (T, 128), the net's input contract,
+    computed on ``device``."""
+
+    from ..device import resolve_device
+    from ..ops.mel import mel_filterbank, melspectrogram_from_power, power_to_db
+    from ..ops.stft import magnitude
+
+    y = torch.as_tensor(np.asarray(samples, dtype=np.float32), device=resolve_device(device))
+    with torch.inference_mode():
+        power = magnitude(y, 2048, _HOP, power=2.0)
+        mel_db = power_to_db(melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128)))
+    feats = mel_db.T.cpu().numpy()
+    mu, sd = feats.mean(), feats.std() + 1e-6
+    return ((feats - mu) / sd).astype(np.float32)
+
+
+def synth_percussion(
+    rng: np.random.Generator,
+    *,
+    seconds: float = 6.0,
+    sr: int = _SR,
+    style: "str | None" = None,
+    rhythm: "str | None" = None,
+    return_downbeat_mask: bool = False,
+):
+    """Synthesise a percussive pattern; return (audio, beat_times, meter)
+    (plus the per-beat downbeat mask when ``return_downbeat_mask``).
+
+    Styles (drawn at random unless pinned): "accent", the downbeat is the
+    loudest hit; "backbeat", a quiet kick on the downbeat under loud
+    off-beat snares, so that only the kick's timbre marks it. Rhythms:
+    "straight" (constant tempo, the first beat a downbeat), "complex"
+    (tempo drift up to +-2% a minute, swung off-beat hats, a pickup) and
+    "auto" ("complex" with probability 0.5)."""
+
+    n = int(seconds * sr)
+    bpm = rng.uniform(80, 160)
+    meter = int(rng.choice([3, 4]))
+    if style is None:
+        style = "backbeat" if rng.random() < 0.4 else "accent"
+    if style not in ("accent", "backbeat"):
+        raise ValueError(f"unknown percussion style: {style!r}")
+    if rhythm is None:
+        rhythm = "straight"
+    if rhythm == "auto":
+        rhythm = "complex" if rng.random() < 0.5 else "straight"
+    if rhythm not in ("straight", "complex"):
+        raise ValueError(f"unknown rhythm: {rhythm!r}")
+
+    drift = rng.uniform(-0.02, 0.02) if rhythm == "complex" else 0.0  # per minute
+    swing_ratio = rng.uniform(0.55, 0.67) if rhythm == "complex" else 0.5
+    pickup = int(rng.integers(0, meter)) if rhythm == "complex" else 0
+
+    offset = rng.uniform(0, 60.0 / bpm)
+    # Integrate tempo(t) = bpm * (1 + drift * t / 60): each interval uses
+    # the local tempo.
+    times = []
+    t = offset
+    while t < seconds - 0.05:
+        times.append(t)
+        t += 60.0 / (bpm * (1.0 + drift * t / 60.0))
+    beat_times = np.asarray(times)
+    downbeat_mask = (np.arange(beat_times.size) + pickup) % meter == 0
+
+    y = rng.normal(0, rng.uniform(0.002, 0.02), n).astype(np.float64)
+    t_hit = np.arange(int(0.05 * sr)) / sr
+
+    for i, bt in enumerate(beat_times):
+        s = int(bt * sr)
+        e = min(n, s + t_hit.size)
+        is_down = bool(downbeat_mask[i])
+        if style == "backbeat":
+            amp = rng.uniform(0.35, 0.55) if is_down else rng.uniform(0.8, 1.1)
+        else:
+            amp = rng.uniform(0.7, 1.0) if is_down else rng.uniform(0.25, 0.55)
+        # the kick's timbre marks the downbeat in both styles
+        if is_down:
+            seg = np.sin(2 * np.pi * (55 + 60 * np.exp(-t_hit * 50)) * t_hit)
+        else:
+            seg = rng.normal(0, 1.0, t_hit.size) * np.exp(-t_hit * 90)
+            seg += 0.5 * np.sin(2 * np.pi * rng.uniform(800, 2000) * t_hit)
+        y[s:e] += amp * (seg * np.exp(-t_hit * 25))[: e - s]
+        # a swung off-beat hat: an unlabelled event between beats
+        if rhythm == "complex" and i + 1 < beat_times.size:
+            hs = int((bt + swing_ratio * (beat_times[i + 1] - bt)) * sr)
+            he = min(n, hs + t_hit.size // 3)
+            if he > hs:
+                hat = rng.normal(0, 1.0, he - hs) * np.exp(-np.arange(he - hs) / (0.004 * sr))
+                y[hs:he] += rng.uniform(0.15, 0.4) * hat
+    # harmonic bed
+    y += rng.uniform(0.05, 0.25) * np.sin(2 * np.pi * rng.uniform(80, 300) * np.arange(n) / sr)
+    if return_downbeat_mask:
+        return y, beat_times, meter, downbeat_mask
+    return y, beat_times, meter
+
+
+def synthetic_audio_example(
+    rng: np.random.Generator, *, seconds: float = 6.0, sr: int = _SR, device: "str | torch.device" = "cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """A synthetic percussive pattern (rhythm "auto") as (feats (T, 128),
+    labels (T,)); the frame after each labelled beat carries its label
+    too."""
+
+    y, beat_times, _meter, downs = synth_percussion(
+        rng, seconds=seconds, sr=sr, rhythm="auto", return_downbeat_mask=True
+    )
+    feats = logmel_features(y, sr, device=device)
+    labels = np.zeros(feats.shape[0], dtype=np.int32)
+    for i, bt in enumerate(beat_times):
+        f = int(bt * sr / _HOP)
+        if 0 <= f < labels.size:
+            labels[f] = 2 if downs[i] else 1
+            if f + 1 < labels.size and labels[f + 1] == 0:
+                labels[f + 1] = labels[f]
+    return feats, labels
+
+
+def synthetic_audio_batch(
+    rng: np.random.Generator,
+    *,
+    batch: int = 8,
+    seconds: float = 6.0,
+    frames: int = 256,
+    sample_rates: Tuple[int, ...] = (_SR,),
+    device: "str | torch.device" = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """A batch of synthetic examples cropped to ``frames``. Mixing sample
+    rates trains one net across frame rates."""
+
+    pairs = []
+    for _ in range(batch):
+        sr = int(rng.choice(sample_rates))
+        # keep enough audio to fill the frame crop at this rate
+        secs = max(seconds, (frames + 2) * _HOP / sr)
+        pairs.append(synthetic_audio_example(rng, seconds=secs, sr=sr, device=device))
+    feats = np.stack([f[:frames] for f, _ in pairs])
+    labels = np.stack([l[:frames] for _, l in pairs])
+    return feats, labels

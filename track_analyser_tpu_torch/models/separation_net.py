@@ -14,12 +14,15 @@ blocks; v5: width 144, four blocks with dilations 1, 3, 9, 27). Channels
 are a leading batch axis (the reference's ``vmap``); features are laid out
 (..., T, bands, D), time before bands as in the reference. Everything is
 plain PyTorch: ``torch.fft``, ``torch.matmul`` per band, shifted slices
-for the depthwise conv. Not ported: ``init_params``, ``save_checkpoint``
-and the training scaffold.
+for the depthwise conv. ``init_params`` draws a new net with the JAX
+module's shapes and scales, ``params_to_jax`` / ``save_checkpoint`` write
+one in the JAX checkpoint layout; the training scaffold is
+``models/training.py``.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Tuple
@@ -43,6 +46,9 @@ __all__ = [
     "checkpoint_dilations",
     "load_checkpoint",
     "run_from_checkpoint",
+    "init_params",
+    "params_to_jax",
+    "save_checkpoint",
 ]
 
 STEMS = ("drums", "bass", "other", "vocals")
@@ -205,6 +211,53 @@ def params_from_jax(params: Dict[str, np.ndarray]) -> BandSplitMaskNet:
                 )
             model.p[name].copy_(value)
     return model.eval()
+
+
+def _glorot(shape: tuple, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator) * math.sqrt(2.0 / (shape[0] + shape[-1]))
+
+
+def init_params(
+    *,
+    n_bands: int = 16,
+    d_model: int = 96,
+    n_blocks: int = 2,
+    dilations: "Tuple[int, ...] | None" = None,
+    generator: "torch.Generator | None" = None,
+) -> BandSplitMaskNet:
+    """A new mask net with the JAX ``init_params``'s keys, shapes and
+    scales: Glorot-normal encoders, decoders, pointwise and band-mixing
+    matrices, 0.1 x normal depthwise taps, zero biases; drawn from
+    ``generator`` (the draws are torch's, not JAX's)."""
+
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = BandSplitMaskNet(d_model=d_model, n_blocks=n_blocks, dilations=dilations, n_bands=n_bands)
+    with torch.no_grad():
+        for name, p in model.p.items():
+            if name.endswith("_b"):
+                p.zero_()
+            elif name.endswith("_tconv"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(_glorot(tuple(p.shape), gen))
+    return model
+
+
+def params_to_jax(model: BandSplitMaskNet) -> Dict[str, np.ndarray]:
+    """The net's parameters as numpy float32 under their JAX names (the
+    layouts are the JAX ones already); "_dilations" is not a weight and
+    is left out."""
+
+    return {name: p.detach().cpu().numpy().astype(np.float32) for name, p in model.p.items()}
+
+
+def save_checkpoint(model: BandSplitMaskNet, path: "str | Path") -> None:
+    """An .npz in the JAX checkpoint layout, the net's dilation schedule
+    under "_dilations" (int64), which both packages read."""
+
+    arrays = params_to_jax(model)
+    arrays["_dilations"] = np.asarray(model.dilations, dtype=np.int64)
+    np.savez(path, **arrays)
 
 
 def forward_masks(

@@ -144,13 +144,19 @@ def true_peak_oversample_matrix(up: int) -> np.ndarray:
     return hpad.reshape(n_rows, up).astype(np.float32)
 
 
-def oversampled_peak(x: torch.Tensor, up: int = 8) -> torch.Tensor:
+def oversampled_peak(x: torch.Tensor, up: int = 8, *, mask: "torch.Tensor | None" = None) -> torch.Tensor:
     """max |polyphase-upsampled x| of ``x`` (..., n) along its last axis,
     one peak per lane.
 
     y[up*n + p] = sum_q x[n + shift - q] * h[up*q + p]: the reversed
     windows are an ``unfold`` of the padded signal read against H with
-    its rows flipped."""
+    its rows flipped.
+
+    ``mask`` (optional, bool (n,)) restricts the max to the output rows
+    whose leading input sample n is masked, while the interpolation still
+    reads the true neighbouring samples: a sequence-sharded caller claims
+    its own sample range this way without fabricating a zero step at a
+    shard boundary (zeroing the input there would ring the interpolator)."""
 
     hmat = torch.as_tensor(true_peak_oversample_matrix(up), device=x.device)
     n_rows = hmat.shape[0]
@@ -158,4 +164,6 @@ def oversampled_peak(x: torch.Tensor, up: int = 8) -> torch.Tensor:
     xp = F.pad(x, (n_rows - 1 - shift, shift))
     windows = xp.unfold(-1, n_rows, 1)  # windows[n, j] = xp[n + j]
     y = torch.abs(windows @ torch.flip(hmat, dims=(0,)))
+    if mask is not None:
+        y = torch.where(mask[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
     return torch.amax(y, dim=(-2, -1))
