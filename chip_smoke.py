@@ -113,7 +113,25 @@ Phases (any failure exits non-zero and prints no result line):
      memory; then python -m track_analyser_tpu_torch.dryrun --world 2
      --backend gloo (dp analysis against one batched graph, the dp x tp
      step against one single-process step, the seq-sharded analysis) on
-     the one card.
+     the one card;
+ 17. out-of-family accuracy: the 13 songs of tests/test_independent_eval.py
+     (scripts/independent_engine.py, loaded by path and rendered in a pool
+     of spawned processes: the fixed song and seeds 1000-1011, every fourth
+     at 3/4; mono, 22.05 kHz, 22-47 s) each once through both STFT routes
+     (the first calls at each bucket, printed as such), then through
+     evaluation.evaluate_song on the card, one line a song (meter, BPM,
+     tracked and downbeat F1, the four ΔSI-SDR, the warm analysis and
+     separation walls); the fixed song held
+     to SINGLE_SONG_GATES and the twelve to DISTRIBUTION_GATES, any failed
+     gate failing the run; the medians +1 per axis per analysis and per
+     separation; the analyses again with TA_PALLAS_STFT=1 (the STFT kernel
+     once a song, the F1 gates again, each song against its cuFFT run by
+     compare_results, a flipped decision reported by field); both kernels
+     at every launch shape of the phase (the medians bit-identical, the
+     STFT within 2e-6 of the frame norm of its plain version and of
+     cuFFT), timed at the longest song's shapes beside their bounds (the
+     STFT beside cuFFT); seed 1003 on the
+     host against the card (compare_results, ΔSI-SDR within 0.01 dB).
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,6 +142,7 @@ Imports nothing of JAX: it drives the port only.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -133,6 +152,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -1341,6 +1361,247 @@ def training_phase(card: str) -> None:
     check(proc.returncode == 0, f"dryrun --world 2: exit {proc.returncode}\n{proc.stderr[-4000:]}")
     print(f"dryrun --world 2 --backend gloo: exit 0 in {time.perf_counter() - t0:.1f} s -- {card}")
 
+# Phase 17: the repo's out-of-family songs (scripts/independent_engine.py),
+# as tests/test_independent_eval.py renders them: the fixed song, and the
+# twelve randomised songs of seeds 1000-1011, every fourth forced to 3/4
+# (:126-138), mono at 22.05 kHz.
+ENGINE = Path(__file__).resolve().parent / "scripts" / "independent_engine.py"
+INDEPENDENT_SR = 22_050
+INDEPENDENT_SEEDS = tuple(range(1000, 1012))
+INDEPENDENT_CPU_SEED = 1003  # meter 3, also run on the host
+SI_SDR_HOST_DB = 0.01  # card against host, per stem
+
+
+def render_independent(seed: "int | None") -> tuple:
+    """(label, meter, stems, mix, beat times, bar starts) of one song of
+    the independent engine, loaded by path: ``None`` is the fixed song
+    (render_song, 4/4), a seed a randomised song. Runs in a worker."""
+
+    spec = importlib.util.spec_from_file_location("independent_engine", ENGINE)
+    engine = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(engine)
+    if seed is None:
+        stems, mix, beats, bars = engine.render_song(sr=INDEPENDENT_SR)
+        return "fixed", 4, stems, mix, beats, bars
+    meter = 3 if (seed - INDEPENDENT_SEEDS[0]) % 4 == 3 else None
+    stems, mix, beats, bars, meta = engine.render_random_song(seed, sr=INDEPENDENT_SR, meter=meter)
+    return str(seed), meta["meter"], stems, mix, beats, bars
+
+
+@contextlib.contextmanager
+def launch_shapes(module, symbol: str, shape_args: slice):
+    """Record, for every launch of ``module``'s kernel inside the block,
+    the arguments ``shape_args`` of its C entry point ``symbol`` (the
+    wrapper looks its library up through ``module._library`` at each
+    call). The launch counts are untouched."""
+
+    real = module._library
+    seen = []
+
+    def recording():
+        launch = getattr(real(), symbol)
+
+        def record(*args):
+            seen.append(tuple(args[shape_args]))
+            return launch(*args)
+
+        return types.SimpleNamespace(**{symbol: record})
+
+    module._library = recording
+    try:
+        yield seen
+    finally:
+        module._library = real
+
+
+def independent_phase(card: str, launches: "Launches", path_launches: dict, minmax_per_s: float) -> dict:
+    """Phase 17: the accuracy gates of tests/test_independent_eval.py on
+    the card, under cuFFT and under TA_PALLAS_STFT=1; the kernels at the
+    22.05 kHz shapes; one song on the host against the card. Returns the
+    kernels' timings at the new shapes."""
+
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from track_analyser_tpu_torch import evaluation
+    from track_analyser_tpu_torch.ops import fused_stft, median
+    from track_analyser_tpu_torch.ops.stft import magnitude
+    from track_analyser_tpu_torch.parallel.batch import ms_bucket_length
+
+    phase("17 out-of-family accuracy: the independent engine's 13 songs at 22.05 kHz, fused analysis + DSP separator")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
+        songs = list(pool.map(render_independent, (None,) + INDEPENDENT_SEEDS))
+    print(f"rendered {len(songs)} songs ({sum(len(s[3]) for s in songs) / INDEPENDENT_SR:.1f} s of audio) in {time.perf_counter() - t0:.1f} s on the host")
+
+    def line(label, meter, row, where: str = card) -> str:
+        head = (
+            f"song {label:>5} meter {meter} (decoded {row.decoded_meter}, {row.downbeat_source}): bpm {row.bpm:.3f} | tracked F1 "
+            f"{row.beat_f1:.4f} downbeat F1 {row.downbeat_f1:.4f} | analysis {row.analysis_s * 1e3:.1f} ms"
+        )
+        if not row.delta_si_sdr:
+            return f"{head} -- {where}"
+        deltas = " ".join(f"{n} {row.delta_si_sdr[n]:+.2f}" if n in row.delta_si_sdr else f"{n} silent" for n in evaluation.STEMS)
+        return f"{head}, separation {row.separation_s * 1e3:.1f} ms | ΔSI-SDR dB {deltas} -- {where}"
+
+    def gates(rows, f1_only: bool = False) -> None:
+        fixed, spread = rows[:1], rows[1:]
+        single, dist = evaluation.SINGLE_SONG_GATES, evaluation.DISTRIBUTION_GATES
+        if f1_only:
+            single = [g for g in single if g.metric not in evaluation.STEMS]
+            dist = [g for g in dist if g.metric not in evaluation.STEMS]
+        failures = [f"fixed song: {f}" for f in evaluation.check_gates(fixed, single)]
+        failures += [f"randomised songs: {f}" for f in evaluation.check_gates(spread, dist)]
+        for f in failures:
+            print(f"GATE FAILED {f}")
+        check(not failures, f"{len(failures)} accuracy gate(s) failed: {failures}")
+        f1 = np.array([r.beat_f1 for r in spread]), np.array([r.downbeat_f1 for r in spread])
+        m3 = np.array([r.downbeat_f1 for r in spread if r.meter == 3])
+        print(
+            f"gates hold: fixed song tracked {fixed[0].beat_f1:.4f} downbeat {fixed[0].downbeat_f1:.4f}; randomised tracked "
+            f"median {np.median(f1[0]):.4f} min {f1[0].min():.4f}, downbeat median {np.median(f1[1]):.4f} min "
+            f"{f1[1].min():.4f}, 3/4 median {np.median(m3):.4f} over {m3.size}"
+            + ("" if f1_only else "; ΔSI-SDR medians " + ", ".join(
+                f"{n} {np.median([r.delta_si_sdr[n] for r in spread if n in r.delta_si_sdr]):+.2f}" for n in evaluation.STEMS
+            ))
+        )
+
+    # ---- first calls: the 22.05 kHz buckets are new to the card ----------------
+    # The first analysis at a bucket, and the first separation at a length,
+    # pay that shape's plans and allocations. Each song goes once through
+    # both STFT routes here, so that the passes below read warm walls.
+    seen = set()
+    for label, meter, stems, mix, beats, bars in songs:
+        bucket = ms_bucket_length(len(mix))
+        cold = evaluation.evaluate_song(stems, mix, beats, bars, sample_rate=INDEPENDENT_SR, meter=meter, device="cuda")
+        os.environ["TA_PALLAS_STFT"] = "1"
+        try:
+            cold_fused = evaluation.evaluate_song(stems, mix, beats, bars, sample_rate=INDEPENDENT_SR, meter=meter, device="cuda", separate=False)
+        finally:
+            del os.environ["TA_PALLAS_STFT"]
+        print(
+            f"first call: song {label:>5} bucket {bucket} ({'seen before' if bucket in seen else 'first at its bucket'}): analysis "
+            f"{cold.analysis_s * 1e3:.1f} ms, separation {cold.separation_s * 1e3:.1f} ms, TA_PALLAS_STFT=1 analysis "
+            f"{cold_fused.analysis_s * 1e3:.1f} ms -- {card}"
+        )
+        seen.add(bucket)
+
+    # ---- the main path: evaluate_song on the card (cuFFT) ----------------------
+    launches.reset()
+    with launch_shapes(median, "median31_launch", slice(2, 6)) as median_shapes:
+        rows = [
+            evaluation.evaluate_song(stems, mix, beats, bars, sample_rate=INDEPENDENT_SR, meter=meter, device="cuda")
+            for _label, meter, stems, mix, beats, bars in songs
+        ]
+    path_launches[f"independent songs ({len(songs)}, cuFFT)"] = counts = launches.read()
+    expected = {"median31_time": 2 * len(songs), "median31_freq": 2 * len(songs), "stft_magnitude": 0}
+    check(counts == expected, f"independent songs: launches {counts}, expected {expected} (+1 per axis per analysis and per separation)")
+    for (label, meter, *_), row in zip(songs, rows):
+        print(line(label, meter, row))
+    print(f"launches over the {len(songs)} songs: {json.dumps(counts)}")
+    gates(rows)
+
+    # ---- the same analyses through the fused STFT kernel ----------------------
+    launches.reset()
+    os.environ["TA_PALLAS_STFT"] = "1"
+    try:
+        with launch_shapes(fused_stft, "stft_mag_launch", slice(3, 5)) as stft_shapes:
+            fused_rows = [
+                evaluation.evaluate_song(stems, mix, beats, bars, sample_rate=INDEPENDENT_SR, meter=meter, device="cuda", separate=False)
+                for _label, meter, stems, mix, beats, bars in songs
+            ]
+    finally:
+        del os.environ["TA_PALLAS_STFT"]
+    path_launches[f"independent songs ({len(songs)}, TA_PALLAS_STFT=1)"] = counts = launches.read()
+    expected = {"median31_time": len(songs), "median31_freq": len(songs), "stft_magnitude": len(songs)}
+    check(counts == expected, f"independent songs, TA_PALLAS_STFT=1: launches {counts}, expected {expected}")
+    flipped = {}
+    for (label, meter, *_), row, ref in zip(songs, fused_rows, rows):
+        print(line(label, meter, row, f"TA_PALLAS_STFT=1 -- {card}"))
+        try:
+            compare_results(row.result, ref.result, f"song {label}: TA_PALLAS_STFT=1 vs cuFFT", rounding_differs=True)
+        except SmokeFailure as exc:  # a flipped decision is the finding here, reported by field
+            flipped[label] = differing_fields(row.result, ref.result)
+            print(f"song {label}: TA_PALLAS_STFT=1 vs cuFFT: a decision flipped: {exc}; fields not bit-identical: {flipped[label]}")
+    print(f"TA_PALLAS_STFT=1 against cuFFT: {len(songs) - len(flipped)} of {len(songs)} songs within compare_results; flipped: {json.dumps(flipped)}")
+    print(f"launches over the {len(songs)} songs: {json.dumps(counts)}")
+    gates(fused_rows, f1_only=True)
+
+    # ---- the kernels at this phase's shapes ------------------------------------
+    timings = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    distinct = sorted(set(median_shapes))
+    print(f"median31 launch shapes (batch, rows, cols, axis_time): {distinct}")
+    for batch, n_rows, cols, axis_time in distinct:
+        x = torch.rand((batch, n_rows, cols), device="cuda", generator=gen)
+        axis = -1 if axis_time else -2
+        got, ref = median.median31(x, axis), median.median31_reference(x, axis)
+        err = float((got - ref).abs().max())
+        check(torch.equal(got, ref), f"median31 axis {axis} at {tuple(x.shape)}: max |diff| {err}")
+    print(f"median31 bit-identical to median31_reference at all {len(distinct)} launch shapes")
+    # Timed at the longest song's shapes: the analysis spectrogram
+    # (2048/512) and the separator's (4096/1024).
+    for key, n_rows in (("analysis", 1025), ("separator", 2049)):
+        shape = max((s[:3] for s in median_shapes if s[1] == n_rows), key=lambda s: s[2])
+        x = torch.rand(shape, device="cuda", generator=gen)
+        for axis in (-1, -2):
+            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
+            bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
+            timings[(key, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
+            print(f"{REPLACES[axis][0]} at the {key}'s {shape}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}")
+        del x
+    distinct = sorted(set(stft_shapes))
+    print(f"stft_magnitude launch shapes (channels, samples): {distinct}")
+    worst = {"max_abs_err": 0.0, "plain": 0.0, "cufft": 0.0}
+    for channels, n in distinct:
+        y = torch.randn((channels, n), device="cuda", generator=gen) * 0.3
+        got = fused_stft.stft_magnitude(y, 2048, 512)
+        plain = fused_stft.stft_magnitude_reference(y, 2048, 512)
+        e_plain, e_fft = frame_norm_err(got, plain), frame_norm_err(got, magnitude(y, 2048, 512))
+        check(e_plain < STFT_TOL and e_fft < STFT_TOL, f"stft at {(channels, n)}: frame-norm error {e_plain} vs plain, {e_fft} vs cuFFT, beyond {STFT_TOL}")
+        worst = {"max_abs_err": max(worst["max_abs_err"], float((got - plain).abs().max())), "plain": max(worst["plain"], e_plain), "cufft": max(worst["cufft"], e_fft)}
+    print(
+        f"stft_magnitude within {STFT_TOL} of each frame's norm at all {len(distinct)} launch shapes: worst frame-norm "
+        f"error vs plain {worst['plain']:.3e}, vs cuFFT {worst['cufft']:.3e}, max |diff| vs plain {worst['max_abs_err']:.3e}"
+    )
+    # Timed at the longest song's shape.
+    channels, n = max(distinct, key=lambda s: s[1])
+    y = torch.randn((channels, n), device="cuda", generator=gen) * 0.3
+    frames = 1 + n // 512
+    kernel_ms = time_cuda_ms(lambda: fused_stft.stft_magnitude(y, 2048, 512), reps=10, warmup=2)
+    plain_ms = time_cuda_ms(lambda: fused_stft.stft_magnitude_reference(y, 2048, 512), reps=5, warmup=1)
+    library_ms = time_cuda_ms(lambda: magnitude(y, 2048, 512), reps=10, warmup=2)
+    bound_ms, bound_by = bound(4 * channels * n + 4 * channels * 1025 * frames, channels * frames * STFT_FLOP_PER_FRAME / FP32_FLOP_PER_S)
+    timings["stft"] = {
+        "shape": [channels, n], "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "max_abs_err": worst["max_abs_err"], "max_frame_norm_err": max(worst["plain"], worst["cufft"]),
+    }
+    print(
+        f"stft_magnitude at {(channels, n)}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, cuFFT {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
+    )
+    del y, got, plain
+
+    # ---- one song on the host against the card ---------------------------------
+    k = 1 + INDEPENDENT_SEEDS.index(INDEPENDENT_CPU_SEED)
+    label, meter, stems, mix, beats, bars = songs[k]
+    host = evaluation.evaluate_song(stems, mix, beats, bars, sample_rate=INDEPENDENT_SR, meter=meter, device="cpu")
+    print(line(label, meter, host, "on the host CPU"))
+    compare_results(rows[k].result, host.result, f"song {label}: card vs host", rounding_differs=True)
+    off = {n: abs(rows[k].delta_si_sdr[n] - host.delta_si_sdr[n]) for n in host.delta_si_sdr}
+    check(rows[k].delta_si_sdr.keys() == host.delta_si_sdr.keys(), f"song {label}: stems scored {sorted(rows[k].delta_si_sdr)} vs {sorted(host.delta_si_sdr)}")
+    check(max(off.values()) <= SI_SDR_HOST_DB, f"song {label}: ΔSI-SDR card vs host {off}, beyond {SI_SDR_HOST_DB} dB")
+    print(
+        f"song {label}: card and host agree in every field (compare_results); F1 card {rows[k].beat_f1:.4f} / "
+        f"{rows[k].downbeat_f1:.4f}, host {host.beat_f1:.4f} / {host.downbeat_f1:.4f}; ΔSI-SDR within {max(off.values()):.2e} dB"
+    )
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s -- {card}")
+    return timings
+
 
 def main() -> None:
     import torch
@@ -2017,6 +2278,7 @@ def main() -> None:
         library_dir.cleanup()
     sharded_timings = sharded_phase(card, path_launches, main_track, minmax_per_s)
     training_phase(card)
+    independent_timings = independent_phase(card, launches, path_launches, minmax_per_s)
     print(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s")
 
     total = {k: sum(p[k] for p in path_launches.values()) for k in ("median31_time", "median31_freq", "stft_magnitude")}
@@ -2035,6 +2297,7 @@ def main() -> None:
                 "stems_shape": list(STEMS_SHAPE), "stems_ms": stems_ms, "stems_plain_ms": stems_plain_ms,
                 "stems_bound_ms": stems_bound_ms, "stems_bound_by": stems_bound_by,
                 "sharded_per_rank": {f"world {w}": sharded_timings[(w, axis)] for w in (1, 2)},
+                "independent_22050": {k: independent_timings[(k, axis)] for k in ("analysis", "separator")},
             }
         )
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = stft_timings[2 * SWEEP_BATCH]
@@ -2045,6 +2308,7 @@ def main() -> None:
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": [2 * SWEEP_BATCH, BUCKET], "blocks_per_sm": stft_blocks_per_sm,
             "launches_by_path": {k: v["stft_magnitude"] for k, v in path_launches.items()},
+            "independent_22050": independent_timings["stft"],
         }
     )
     print(json.dumps({"kernels": kernels}))

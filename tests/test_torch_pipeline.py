@@ -395,7 +395,9 @@ def test_import_leaves_jax_out() -> None:
         "track_analyser_tpu_torch.io.mpg123, track_analyser_tpu_torch.io.ffmpeg, "
         "track_analyser_tpu_torch.profiling, track_analyser_tpu_torch.parallel.mesh, "
         "track_analyser_tpu_torch.parallel.sharded, track_analyser_tpu_torch.models.training, "
-        "track_analyser_tpu_torch.models.separation_net, track_analyser_tpu_torch.dryrun, chip_smoke; "
+        "track_analyser_tpu_torch.models.separation_net, track_analyser_tpu_torch.dryrun, "
+        "track_analyser_tpu_torch.evaluation, track_analyser_tpu_torch.ops.chroma, "
+        "track_analyser_tpu_torch.ops.spectral, track_analyser_tpu_torch.ops.loudness, chip_smoke; "
         "from track_analyser_tpu_torch.analysis import beats, loudness, structure, harmonic; "
         "harmonic.analyse_harmony; "
         "assert 'jax' not in sys.modules, 'jax imported'; "

@@ -23,7 +23,19 @@ This package imports torch, numpy and scipy, never jax.
 
 from __future__ import annotations
 
+from importlib.metadata import PackageNotFoundError, version
+
 from .pipeline import TrackAnalysisResult, analyse_track
 from .utils import AudioInput
 
-__all__ = ["analyse_track", "TrackAnalysisResult", "AudioInput"]
+__all__ = ["analyse_track", "TrackAnalysisResult", "AudioInput", "get_version"]
+
+
+def get_version() -> str:
+    """Version of the installed distribution that ships this package and
+    the JAX one (``track-analyser-tpu``); "0.0.0" from a source checkout."""
+
+    try:
+        return version("track-analyser-tpu")
+    except PackageNotFoundError:
+        return "0.0.0"

@@ -19,11 +19,18 @@ parameter names:
 
 Public layouts follow the JAX functions: features and logits are
 (T, channels), or (B, T, channels) for a batch of lanes.
+
+``python -m track_analyser_tpu_torch.models.downbeat_net [--steps 400]
+[--batch 8] [--hidden 128] [--out downbeat_ckpt.npz] [--device cuda]``
+trains the GRU net (``train_downbeat``) and writes its checkpoint in the
+JAX package's layout.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
+import sys
 from typing import Dict, Tuple
 
 import numpy as np
@@ -594,3 +601,22 @@ def synthetic_audio_batch(
     feats = np.stack([f[:frames] for f, _ in pairs])
     labels = np.stack([l[:frames] for _, l in pairs])
     return feats, labels
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m track_analyser_tpu_torch.models.downbeat_net",
+        description="Train the GRU downbeat net on synthetic audio and write its checkpoint.",
+    )
+    ap.add_argument("--steps", type=int, default=400)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--hidden", type=int, default=128)
+    ap.add_argument("--out", type=str, default="downbeat_ckpt.npz")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    train_downbeat(args.steps, batch=args.batch, hidden=args.hidden, checkpoint_path=args.out, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,10 +9,17 @@ The loss is an L1 waveform loss plus half an L1 loss of the 1024/256
 written out over the net's parameters in the JAX module's order of
 operations (``torch.optim.Adam`` orders its update differently). The
 downbeat net's SGD step is ``models/downbeat_net.train_step``.
+
+``python -m track_analyser_tpu_torch.models.training [--steps 500]
+[--batch 8] [--seconds 2.0] [--out separation_ckpt.npz] [--device cuda]``
+runs ``train_separation`` and writes the checkpoint in the JAX package's
+layout.
 """
 
 from __future__ import annotations
 
+import argparse
+import sys
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -141,3 +148,22 @@ def train_separation(
     if checkpoint_path is not None:
         separation_net.save_checkpoint(model, checkpoint_path)
     return model, losses
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m track_analyser_tpu_torch.models.training",
+        description="Train the band-split separator on synthetic mixtures and write its checkpoint.",
+    )
+    ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seconds", type=float, default=2.0)
+    ap.add_argument("--out", type=str, default="separation_ckpt.npz")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    train_separation(args.steps, batch=args.batch, seconds=args.seconds, checkpoint_path=args.out, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

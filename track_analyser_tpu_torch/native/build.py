@@ -16,14 +16,22 @@ never ``nvcc``: this is host code) into ``build/torch_kernels/`` through
 ``ops/cuda_build.build_library``, named by a hash of the sources, the
 flags and the host CPU (``-march=native`` code runs only on a CPU like
 the one that built it). Nothing builds at import time.
+
+``python -m track_analyser_tpu_torch.native.build`` builds both now: it
+exits 0 when ``libta_native`` builds, 1 with the compiler's log when it
+does not, and prints whether ``libta_ffmpeg`` is built or absent, and
+why (a failed ffmpeg build is reported, with the head of its log, and
+does not change the exit code).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes.util
 import functools
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Optional
 
@@ -113,3 +121,31 @@ def build_ffmpeg() -> "tuple[Path, str]":
         "ta_ffmpeg", [SRC / FFMPEG_SOURCE], cxx, FLAGS,
         link=tuple(f"-l{name}" for name in FFMPEG_LIBS), key=_host_cpu(),
     )
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    argparse.ArgumentParser(
+        prog="python -m track_analyser_tpu_torch.native.build",
+        description="Build the native host libraries into build/torch_kernels/.",
+    ).parse_args(argv)
+    try:
+        path, _log = build_native()
+    except RuntimeError as exc:  # no compiler, or a failed build: the message holds the log
+        print(f"build failed: {exc}", file=sys.stderr)
+        return 1
+    print(f"libta_native: built ({path})")
+    reason = ffmpeg_absent_reason()
+    if reason is None:
+        try:  # the decode ladder's last tier: best effort, as in the JAX package
+            path, _log = build_ffmpeg()
+        except RuntimeError as exc:
+            reason = f"build failed: {str(exc).strip()[:500]}"
+    if reason is None:
+        print(f"libta_ffmpeg: built ({path})")
+    else:
+        print(f"libta_ffmpeg: absent ({reason})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,6 +11,12 @@ bit-identical:
   octaves projected from two STFTs of one decimated signal, the top
   octaves straight off the shared 2048-family magnitude, jointly
   normalised and summed into one 12-row chroma.
+* ``cq_chroma_multires`` is the two-bank variant (a decimated bass bank
+  and a full-rate 8192 STFT) and ``cq_chroma_filterbank`` the one-bank
+  variant; the analysis does not use them.
+
+Filterbanks are numpy float32; the functions that take a tensor place
+them on its device.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ import torch
 
 __all__ = [
     "chroma_stft_filterbank",
+    "cq_chroma_filterbank",
     "multibank_cq_filterbanks",
+    "multires_cq_filterbanks",
+    "cq_chroma_multires",
     "cq_chroma_tribank",
     "chroma_from_power",
     "normalize_inf",
@@ -60,6 +69,47 @@ def chroma_stft_filterbank(
     if base_c:
         wts = np.roll(wts, -3 * (n_chroma // 12), axis=0)
     return wts[:, : 1 + n_fft // 2].astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def cq_chroma_filterbank(
+    sr: int,
+    n_fft: int,
+    *,
+    bins_per_octave: int = 36,
+    n_octaves: int = 7,
+    fmin: float = 32.703195662574764,  # C1
+    n_chroma: int = 12,
+) -> np.ndarray:
+    """Constant-Q chroma filterbank on FFT bins, shape (12, 1+n_fft/2).
+
+    Each constant-Q channel is a raised-cosine window centred at
+    fmin * 2**(k / bins_per_octave) with bandwidth f_k / Q,
+    Q = 1 / (2**(1/B) - 1), at least one FFT bin wide; channels fold into
+    the nearest pitch class, and each row is L2-normalised."""
+
+    n_bins = bins_per_octave * n_octaves
+    fft_freqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    q = 1.0 / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+
+    fb = np.zeros((n_chroma, fft_freqs.size), dtype=np.float64)
+    bins_per_semitone = bins_per_octave // n_chroma
+    for k in range(n_bins):
+        fc = fmin * 2.0 ** (k / bins_per_octave)
+        if fc >= sr / 2.0:
+            break
+        bw = max(fc / q, sr / n_fft)
+        rel = (fft_freqs - fc) / bw
+        window = 0.5 * (1.0 + np.cos(np.pi * np.clip(rel, -1.0, 1.0)))
+        window[np.abs(rel) >= 1.0] = 0.0
+        ssum = window.sum()
+        if ssum <= 0:
+            continue
+        pc = int(np.round(k / bins_per_semitone)) % n_chroma
+        fb[pc] += window / ssum
+    row_norm = np.sqrt(np.sum(fb**2, axis=1, keepdims=True))
+    fb = fb / np.where(row_norm > 0, row_norm, 1.0)
+    return fb.astype(np.float32)
 
 
 @lru_cache(maxsize=4)
@@ -204,6 +254,66 @@ def multibank_cq_filterbanks(
     row_norm = np.sqrt(sum(np.sum(fb**2, axis=1, keepdims=True) for fb in fbs))
     shared = float(np.mean(row_norm)) or 1.0
     return tuple((fb / shared).astype(np.float32) for fb in fbs)
+
+
+def multires_cq_filterbanks(
+    sr: int,
+    n_fft_high: int,
+    n_fft_low: int,
+    decim: int,
+    *,
+    bins_per_octave: int = 36,
+    n_octaves: int = 7,
+    low_octaves: int = 3,
+    fmin: float = 32.703195662574764,  # C1
+    n_chroma: int = 12,
+) -> tuple:
+    """Two-resolution banks (fb_low, fb_high): the ``low_octaves`` bass
+    octaves from an ``n_fft_low`` STFT of the ``decim``-fold decimated
+    signal, the rest from a full-rate ``n_fft_high`` STFT."""
+
+    return multibank_cq_filterbanks(
+        sr,
+        ((decim, n_fft_low, 0, low_octaves), (1, n_fft_high, low_octaves, n_octaves)),
+        bins_per_octave=bins_per_octave,
+        n_octaves=n_octaves,
+        fmin=fmin,
+        n_chroma=n_chroma,
+    )
+
+
+def cq_chroma_multires(
+    y: torch.Tensor,
+    *,
+    sr: int,
+    n_fft: int = 8_192,
+    hop: int = 2_048,
+    n_fft_low: int = 4_096,
+    decim: int = 16,
+    low_octaves: int = 3,
+    keep_hz: float = 260.0,
+) -> torch.Tensor:
+    """Two-resolution CQ chroma (..., 12, 1 + n//hop) of ``y`` (..., n).
+
+    One full-rate STFT for the octaves from ``low_octaves`` up and one
+    STFT of the decimated signal for the bass octaves, projected through
+    the jointly normalised banks; the decimated hop (hop/decim) keeps
+    both frame grids aligned."""
+
+    from .resample import decimate_fir
+    from .stft import magnitude
+
+    fb_low, fb_high = multires_cq_filterbanks(sr, n_fft, n_fft_low, decim, low_octaves=low_octaves)
+    dev = y.device
+    mag_high = magnitude(y, n_fft, hop, power=1.0)
+    y_low = decimate_fir(y, decim, sr=sr, keep_hz=keep_hz)
+    mag_low = magnitude(y_low, n_fft_low, hop // decim, power=1.0)
+    t = min(mag_high.shape[-1], mag_low.shape[-1])
+    raw = (
+        torch.as_tensor(fb_high, device=dev) @ mag_high[..., :t]
+        + torch.as_tensor(fb_low, device=dev) @ mag_low[..., :t]
+    )
+    return normalize_inf(raw, axis=-2)
 
 
 def cq_chroma_tribank(

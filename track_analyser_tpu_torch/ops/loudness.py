@@ -29,6 +29,7 @@ __all__ = [
     "framed_energy",
     "integrated_lufs",
     "rms_db_curve",
+    "ebu_loudness_range",
 ]
 
 
@@ -190,3 +191,38 @@ def rms_db_curve(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.T
 
     rms = torch.sqrt(framed_energy(y, frame_length, hop_length, center=True) / frame_length)
     return amplitude_to_db(rms + 1e-9, ref=1.0, top_db=80.0, dims=(-1,))
+
+
+def ebu_loudness_range(y: torch.Tensor, fs: int) -> torch.Tensor:
+    """EBU Tech 3342 loudness range (LU) of a mono signal ``y`` (n,): the
+    spread of the gated 3 s short-term loudness, 1 s apart.
+
+    Blocks pass an absolute gate of -70 LUFS and a relative gate 20 LU
+    under their mean energy; the range is the 95th minus the 10th
+    percentile, read as the JAX reference reads them: the sorted gated
+    values at ``int(0.10 * (n - 1))`` and ``int(0.95 * (n - 1))`` (float32
+    products, truncated). 0 for a signal shorter than 3 s or with at most
+    one gated block."""
+
+    yk = k_weighted(y, fs)
+    frame_len = int(round(3.0 * fs))
+    hop = int(round(1.0 * fs))
+    zero = torch.zeros((), dtype=yk.dtype, device=yk.device)
+    if yk.shape[-1] < frame_len:
+        return zero
+    frames = frame_signal(yk, frame_len, hop, center=False)
+    z = torch.mean(frames * frames, dim=-1)
+    eps = 1e-20
+    loud = -0.691 + 10.0 * torch.log10(z + eps)
+    abs_mask = loud > -70.0
+    n_abs = torch.clamp_min(abs_mask.sum(), 1)
+    z_abs = torch.where(abs_mask, z, zero).sum() / n_abs
+    rel_thresh = -0.691 + 10.0 * torch.log10(z_abs + eps) - 20.0
+    mask = abs_mask & (loud > rel_thresh)
+    order = torch.sort(torch.where(mask, loud, torch.full_like(loud, 1e9))).values
+    n_valid = mask.sum()
+    last = loud.shape[0] - 1
+    lo_idx = torch.clamp((0.10 * (n_valid - 1)).to(torch.int32), 0, last)
+    hi_idx = torch.clamp((0.95 * (n_valid - 1)).to(torch.int32), 0, last)
+    lra = order[hi_idx] - order[lo_idx]
+    return torch.where(n_valid > 1, lra, zero)

@@ -1,4 +1,5 @@
-"""Frame-wise spectral summary features and the spectral-balance weights."""
+"""Frame-wise spectral summary features, the long-term average spectrum
+and the spectral-balance weights."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["spectral_centroid", "spectral_rolloff", "balance_band_weights"]
+__all__ = ["ltas", "spectral_centroid", "spectral_rolloff", "balance_band_weights"]
 
 
 @lru_cache(maxsize=8)
@@ -30,6 +31,12 @@ def balance_band_weights(
         w[i] = np.clip(overlap, 0.0, None)
     w /= np.maximum(w.sum(axis=0, keepdims=True), 1e-12)
     return w.astype(np.float32)
+
+
+def ltas(mag: torch.Tensor) -> torch.Tensor:
+    """Long-term average spectrum: mean |STFT| per bin. Input (..., freq, time)."""
+
+    return mag.mean(dim=-1)
 
 
 def spectral_centroid(mag: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
