@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
   3. the median31 kernel against its plain PyTorch version on the card,
      along both axes, at the main paths' shapes (one lane and a batch of
      four lanes) and at ragged shapes (bit-identical), all timed with CUDA
-     events beside the bound;
+     events beside the bound and beside the library call (one unchunked
+     unfold + median over a reflect-padded copy, bit-identical too);
   4. the single-track path: analyse_track(path, device="cuda") on a
      synthetic 181 s 44.1 kHz stereo WAV (bench.py's asserted fixture: 118
      BPM, seed 0) with transport "auto" (= "ms"), cold and warm; the median
@@ -139,7 +140,20 @@ Phases (any failure exits non-zero and prints no result line):
      bundled checkpoints at T = 4 096 (1e-4 absolute), autocorrelate at
      n = 16 385, one lane and two (1e-5 of ac[..., 0]); the native
      binding's available() and has_transport() and native.build.build()
-     True; its wall beside the card's name and power limit.
+     True; its wall beside the card's name and power limit;
+ 19. the library sweep over a mesh: analyse_library(mesh=["cuda:0",
+     "cuda:0"]), two dispatch workers on the one card, over phase 7's
+     library with cuFFT and with TA_PALLAS_STFT=1, at device_batch 1 and
+     4: outcomes in source order, the launches equal to the chunks, both
+     workers used, every lane against its batch-1 analyse_track (bit for
+     bit at batch 1, compare_results at 4), the manifest's resume; a
+     kernel launch failure injected into worker 1's second chunk must
+     raise out of the sweep and leave no thread running; the 40-source
+     library timed with one worker and with two at device_batch 1 and 4
+     (wall, ms per track, tracks per card-hour, stage times, peak
+     memory). With more than one visible card the default mesh
+     (device="cuda", every card) runs too, with each card's share of the
+     chunks and its peak memory; the card count is printed either way.
 The last two lines before the result are the kernels' JSON record and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -159,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import zlib
@@ -1676,6 +1691,193 @@ def api_surface_phase(card: str) -> None:
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s -- {card}")
 
 
+MESH_RUNS = 2  # timed runs of each (device_batch, workers) setting in phase 19
+WORKER = "analyse_library-worker"  # the sweep's dispatch threads are named so
+
+
+@contextlib.contextmanager
+def recording_dispatches(batch_module):
+    """Record (dispatch thread, device) of every chunk that
+    ``batch._dispatch`` runs inside the block."""
+
+    real = batch_module._dispatch
+    seen: list = []
+    lock = threading.Lock()
+
+    def recorded(transport, staged, **kwargs):
+        with lock:
+            seen.append((threading.current_thread().name, str(staged[1].device)))
+        return real(transport, staged, **kwargs)
+
+    batch_module._dispatch = recorded
+    try:
+        yield seen
+    finally:
+        batch_module._dispatch = real
+
+
+def mesh_phase(card: str, launches: "Launches", path_launches: dict, sources: "list[str]",
+               lengths: "list[int]", good: "list[int]") -> None:
+    """Phase 19: ``analyse_library(mesh=["cuda:0", "cuda:0"])``, two
+    dispatch workers on the one card, on phase 7's library through both
+    STFT routes at ``device_batch`` 1 and SWEEP_BATCH: outcomes in source
+    order, launches equal to chunks, both workers used, lanes against
+    batch-1 ``analyse_track`` (bit for bit at batch 1), the manifest's
+    resume; a kernel failure injected into worker 1 propagates and leaves
+    no thread running; the 40-source library timed with one worker and
+    with two; with more than one card, the default mesh over all of
+    them."""
+
+    import torch
+
+    from track_analyser_tpu_torch import analyse_track
+    from track_analyser_tpu_torch.ops import median
+    from track_analyser_tpu_torch.parallel import batch
+    from track_analyser_tpu_torch.pipeline import TrackAnalysisResult
+
+    phase("19 library sweep over a mesh: analyse_library(mesh=['cuda:0', 'cuda:0']), two workers on one card")
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f"visible cards: {n_cards}")
+    two = ["cuda:0", "cuda:0"]
+
+    def sweep(label: str, lanes: int, mesh, singles: dict, fused: bool, manifest=None) -> list:
+        """One sweep of the library, held to its launches, order and lanes."""
+
+        chunks = sweep_chunks(lengths, lanes)
+        launches.reset()
+        with recording_dispatches(batch) as seen:
+            outcome, ms = wall_ms(lambda: batch.analyse_library(
+                sources, device="cuda", mesh=mesh, transport="ms", device_batch=lanes, manifest_path=manifest
+            ))
+        counts = launches.read()
+        path_launches[label] = counts
+        expected = {"median31_time": chunks, "median31_freq": chunks, "stft_magnitude": chunks if fused else 0}
+        check(counts == expected, f"{label}: launches {counts}, expected {expected}")
+        workers = sorted({name.rsplit("_", 1)[0] for name, _dev in seen})
+        share = {d: sum(dev == d for _n, dev in seen) for d in sorted({dev for _n, dev in seen})}
+        check(len(seen) == chunks and len(workers) == min(chunks, len(mesh or range(n_cards))),
+              f"{label}: {len(seen)} dispatches by {workers}, expected {chunks} chunks over every worker")
+        check(len(outcome) == len(sources), f"{label}: {len(outcome)} outcomes for {len(sources)} sources")
+        for i, item in enumerate(outcome):
+            if i not in good:
+                check(isinstance(item, batch.TrackFailure) and item.source == sources[i], f"{label}: source {i} gave {item}")
+                continue
+            check(isinstance(item, TrackAnalysisResult) and item.audio.path == sources[i],
+                  f"{label}: source {i} gave {type(item).__name__} for {getattr(getattr(item, 'audio', None), 'path', None)}")
+            if lanes == 1:
+                fields = differing_fields(item, singles[i])
+                check(not fields, f"{label}: source {i} not bit-identical to batch-1 analyse_track: {fields}")
+            else:
+                compare_results(item, singles[i], f"{label}, source {i} vs analyse_track", rounding_differs=True)
+        print(
+            f"{label}: {ms:.1f} ms wall, {chunks} chunks dealt to workers {workers}, chunks per card {json.dumps(share)}, "
+            f"launches {json.dumps(counts)}; outcomes in source order; lanes "
+            f"{'bit-identical to' if lanes == 1 else 'within compare_results of'} batch-1 analyse_track -- {card}"
+        )
+        return outcome
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for route, fused in (("cufft", False), ("fused_stft", True)):
+            if fused:
+                os.environ["TA_PALLAS_STFT"] = "1"
+            try:
+                singles = {i: analyse_track(sources[i], transport="ms", device="cuda") for i in good}
+                for lanes in (1, SWEEP_BATCH):
+                    manifest = Path(tmp) / f"manifest_{route}_{lanes}.jsonl"
+                    sweep(f"mesh sweep, 2 workers on cuda:0 ({route}, device_batch {lanes})", lanes, two, singles, fused, manifest)
+                    rerun = batch.analyse_library(sources, device="cuda", mesh=two, transport="ms", manifest_path=manifest)
+                    for i, item in enumerate(rerun):
+                        want = batch.SkippedTrack if i in good else batch.TrackFailure
+                        check(isinstance(item, want), f"mesh rerun {route} {lanes}: source {i} gave {type(item).__name__}")
+                print(f"mesh reruns ({route}) with their manifests: done sources skipped, the failed one retried")
+                if n_cards >= 2 and not fused:
+                    # The default mesh: every visible card, one worker each.
+                    for lanes in (1, SWEEP_BATCH):
+                        for i in range(n_cards):
+                            torch.cuda.reset_peak_memory_stats(i)
+                        sweep(f"default mesh over {n_cards} cards ({route}, device_batch {lanes})", lanes, None, singles, fused)
+                        peaks = {f"cuda:{i}": round(torch.cuda.max_memory_allocated(i) / 2**20) for i in range(n_cards)}
+                        print(f"default mesh, device_batch {lanes}: peak device memory MiB per card {json.dumps(peaks)} -- {card}")
+            finally:
+                os.environ.pop("TA_PALLAS_STFT", None)
+        if n_cards < 2:
+            print(f"default mesh over several cards: not run ({n_cards} visible card)")
+
+        # A kernel failure in worker 1: its second chunk's first median
+        # launch reports a CUDA error, as a failed launch would.
+        real_library = median._library
+        calls: dict = {}
+
+        class FailingLaunch:
+            def __init__(self, lib):
+                self.lib = lib
+
+            def median31_launch(self, *args):
+                name = threading.current_thread().name
+                calls[name] = calls.get(name, 0) + 1
+                if name.startswith(f"{WORKER}1") and calls[name] == 3:
+                    return 700  # cudaErrorIllegalAddress
+                return self.lib.median31_launch(*args)
+
+        median._library = lambda: FailingLaunch(real_library())
+        before = set(threading.enumerate())
+        raised = None
+        try:
+            batch.analyse_library(sources, device="cuda", mesh=two, transport="ms", device_batch=1)
+        except RuntimeError as exc:
+            raised = exc
+        finally:
+            median._library = real_library
+        torch.cuda.synchronize()
+        check(raised is not None and "CUDA error 700" in str(raised), f"the failure injected into worker 1 did not propagate: {raised!r}")
+        left = [t.name for t in set(threading.enumerate()) - before if t.is_alive()]
+        check(not left, f"threads left running after the failed sweep: {left}")
+        print(f"failure injected into worker 1's second chunk: analyse_library raised {raised!r}; no thread left running")
+
+        # Throughput: the 40-source library with one worker and with two on
+        # the one card, alternating, MESH_RUNS timed runs each (phase 7
+        # warmed every bucket).
+        long_library = []
+        for copy in range(THROUGHPUT_COPIES):
+            for i in good:
+                link = Path(tmp) / f"copy{copy}_{Path(sources[i]).name}"
+                os.link(sources[i], link)
+                long_library.append(str(link))
+        n_tracks = len(long_library)
+        settings = [(lanes, workers) for lanes in (1, SWEEP_BATCH) for workers in (1, 2)]
+        walls = {s: [] for s in settings}
+        stages = {s: {} for s in settings}
+        peaks = {s: 0.0 for s in settings}
+        for _rep in range(MESH_RUNS):
+            for lanes, workers in settings:
+                batch.reset_stage_seconds()
+                torch.cuda.reset_peak_memory_stats(0)
+                outcome, ms = wall_ms(lambda: batch.analyse_library(
+                    long_library, device="cuda", mesh=["cuda:0"] * workers, transport="ms", device_batch=lanes
+                ))
+                check(all(isinstance(item, TrackAnalysisResult) for item in outcome),
+                      f"mesh throughput, {workers} worker(s), device_batch {lanes}: a track did not analyse")
+                walls[(lanes, workers)].append(ms / 1e3)
+                for k, v in batch.stage_seconds().items():
+                    stages[(lanes, workers)][k] = stages[(lanes, workers)].get(k, 0.0) + v
+                peaks[(lanes, workers)] = max(peaks[(lanes, workers)], torch.cuda.max_memory_allocated(0) / 2**20)
+    for lanes, workers in settings:
+        runs = walls[(lanes, workers)]
+        med = statistics.median(runs)
+        per_track = {k: round(v * 1e3 / (MESH_RUNS * n_tracks), 3) for k, v in sorted(stages[(lanes, workers)].items())}
+        print(
+            f"mesh throughput, device_batch {lanes}, {workers} worker(s) on cuda:0, {n_tracks} tracks, {MESH_RUNS} runs: "
+            f"wall s {[round(w, 3) for w in runs]}; median {med:.3f} s, {med / n_tracks * 1e3:.1f} ms per track, "
+            f"{n_tracks / med * 3600:.0f} tracks per card-hour; stage ms per track (summed over threads) "
+            f"{json.dumps(per_track)}; peak device memory cuda:0 {peaks[(lanes, workers)]:.0f} MiB -- {card}"
+        )
+    for lanes in (1, SWEEP_BATCH):
+        one, two_w = (statistics.median(walls[(lanes, w)]) for w in (1, 2))
+        print(f"device_batch {lanes}: two workers against one, median wall {two_w / one:.3f}x -- {card}")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s -- {card}")
+
+
 def main() -> None:
     import torch
 
@@ -1686,6 +1888,7 @@ def main() -> None:
     from track_analyser_tpu_torch.device import resolve_device
     from track_analyser_tpu_torch.io import write_wav
     from track_analyser_tpu_torch.ops import cuda_build, fused_stft, median
+    from track_analyser_tpu_torch.ops.filters import reflect_index
     from track_analyser_tpu_torch.ops.stft import magnitude
     from track_analyser_tpu_torch.parallel import batch
     from track_analyser_tpu_torch.pipeline import TrackAnalysisResult
@@ -1771,12 +1974,22 @@ def main() -> None:
         for axis in (-1, -2):
             kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
             plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
+            # The library call: one unchunked unfold + median over a
+            # reflect-padded copy (the copy is made outside the timing).
+            padded = x.index_select(axis, reflect_index(x.shape[axis], 15, 15, x.device))
+            def library():
+                return padded.unfold(axis, 31, 1).median(dim=-1).values
+
+            check(torch.equal(library(), median.median31(x, axis)), f"median library call at {shape} axis {axis}")
+            library_ms = time_cuda_ms(library, reps=5, warmup=1)
+            del padded
             bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
-            median_timings[(shape, axis)] = (kernel_ms, plain_ms, bound_ms, bound_by)
+            median_timings[(shape, axis)] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
             gbps = 2 * x.numel() * 4 / (kernel_ms * 1e-3) / 1e9
             print(
                 f"{REPLACES[axis][0]} at {shape}: kernel {kernel_ms:.4f} ms ({gbps:.0f} GB/s of one read + "
-                f"one write), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
+                f"one write), plain {plain_ms:.4f} ms, library call (unfold + median, unchunked) "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
             )
         del x
 
@@ -1930,7 +2143,7 @@ def main() -> None:
 
     # ---- 7. library sweep ----------------------------------------------------
     phase(f"7 library sweep: analyse_library(transport='ms', device_batch={SWEEP_BATCH})")
-    # The library stays on disk for phases 12 and 13.
+    # The library stays on disk for phases 12, 13 and 19.
     library_dir = tempfile.TemporaryDirectory()
     sources, lengths, good = write_library(Path(library_dir.name))
     chunks = sweep_chunks(lengths, SWEEP_BATCH)
@@ -2347,27 +2560,29 @@ def main() -> None:
         subbyte_phase(card, launches, path_launches, main_track, sources, lengths, good)
         cli_phase(card, main_track, main_result.beat.bpm, sources, good)
         decode_phase(card, cpu, launches, path_launches, main_track)
+        sharded_timings = sharded_phase(card, path_launches, main_track, minmax_per_s)
+        training_phase(card)
+        independent_timings = independent_phase(card, launches, path_launches, minmax_per_s)
+        api_surface_phase(card)
+        mesh_phase(card, launches, path_launches, sources, lengths, good)
     finally:
         library_dir.cleanup()
-    sharded_timings = sharded_phase(card, path_launches, main_track, minmax_per_s)
-    training_phase(card)
-    independent_timings = independent_phase(card, launches, path_launches, minmax_per_s)
-    api_surface_phase(card)
     print(f"chip_smoke wall: {time.perf_counter() - wall_start:.1f} s")
 
     total = {k: sum(p[k] for p in path_launches.values()) for k in ("median31_time", "median31_freq", "stft_magnitude")}
     kernels = []
     for axis in (-1, -2):
         name, replaces = REPLACES[axis]
-        kernel_ms, plain_ms, bound_ms, bound_by = median_timings[(batch_shape, axis)]
+        kernel_ms, plain_ms, bound_ms, bound_by, library_ms = median_timings[(batch_shape, axis)]
         stems_ms, stems_plain_ms, stems_bound_ms, stems_bound_by = stems_median[axis]
         kernels.append(
             {
                 "name": name, "route": "cuda", "source": MEDIAN_SOURCE, "replaces": replaces,
                 "launches": total[name], "ms": kernel_ms, "plain_ms": plain_ms,
                 "max_abs_err": max([errs[axis]] + [sharded_timings[(w, axis)]["max_abs_err"] for w in (1, 2)]),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                 "shape": list(batch_shape), "launches_by_path": {k: v[name] for k, v in path_launches.items()},
+                "one_lane": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), median_timings[(MAIN_SHAPE, axis)])),
                 "stems_shape": list(STEMS_SHAPE), "stems_ms": stems_ms, "stems_plain_ms": stems_plain_ms,
                 "stems_bound_ms": stems_bound_ms, "stems_bound_by": stems_bound_by,
                 "sharded_per_rank": {f"world {w}": sharded_timings[(w, axis)] for w in (1, 2)},

@@ -85,10 +85,6 @@ RENAMED_PARAMS = {
     ("parallel/sharded.py", "sharded_track_outputs", "axis"): (None, _GROUP),
     ("parallel/sharded.py", "analyse_track_sharded", "mesh"): ("group", _GROUP),
     ("parallel/sharded.py", "analyse_track_sharded", "axis"): (None, _GROUP),
-    ("parallel/batch.py", "analyse_library", "mesh"): (
-        "device",
-        "the sweep runs on one card; spreading it over several is ROADMAP Queue 1 item 3",
-    ),
 }
 
 

@@ -8,7 +8,9 @@ The JAX package's commands with the same flags, skip sentinels
 (skip|none|false|off), messages and exit codes: 0 on success, 1 when the
 analysis or the rendering fails (``Error: ...``), 2 for a usage error.
 Two options are the port's own: ``--device`` on both commands (default
-``cuda``; ``cpu`` runs the plain PyTorch path), and ``--plots`` on
+``cuda``; ``cpu`` runs the plain PyTorch path; ``analyze-batch --device
+cuda`` spreads the sweep over every visible card, as the JAX command
+spreads it over every device, and ``cuda:N`` keeps it on one), and ``--plots`` on
 ``analyze-batch``, which takes only a skip sentinel: it renders every
 track without its plot PNGs, for a host without matplotlib (plots are
 never skipped silently). The commands are built on ``argparse``, so the
@@ -127,11 +129,15 @@ def _parser() -> argparse.ArgumentParser:
         "source starting at i (0-based).",
     )
 
-    for command in (analyze, batch):
-        command.add_argument(
-            "--device", default="cuda",
-            help="Where the analysis runs: 'cuda' (default) or 'cpu'.",
-        )
+    analyze.add_argument(
+        "--device", default="cuda",
+        help="Where the analysis runs: 'cuda' (default), 'cuda:N' or 'cpu'.",
+    )
+    batch.add_argument(
+        "--device", default="cuda",
+        help="Where the sweep runs: 'cuda' (default: every visible card, one "
+        "dispatch worker each), 'cuda:N' (that card) or 'cpu'.",
+    )
     return parser
 
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import math
 import sys
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -234,6 +235,7 @@ def forward(params: Dict[str, "np.ndarray | torch.Tensor"], feats: torch.Tensor)
 
 
 _model_cache: dict = {}
+_model_lock = threading.Lock()  # sweep workers ask for the net from several threads
 
 
 def model_for(params: Dict[str, np.ndarray], device: torch.device) -> nn.Module:
@@ -241,9 +243,11 @@ def model_for(params: Dict[str, np.ndarray], device: torch.device) -> nn.Module:
     (checkpoint, device)."""
 
     key = (id(params), str(device))
-    if key not in _model_cache:
-        _model_cache[key] = params_from_jax(params).to(device)
-    return _model_cache[key]
+    with _model_lock:
+        if key not in _model_cache:
+            # The entry holds ``params`` too, so that its id is not reused.
+            _model_cache[key] = (params, params_from_jax(params).to(device))
+        return _model_cache[key][1]
 
 
 def activation_graph(

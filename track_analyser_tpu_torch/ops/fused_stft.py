@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +55,9 @@ KERNEL_HOP = 512
 _BIN_TILE = 64  # the plain version's basis is padded to a multiple of it
 _basis_cache: dict = {}
 _tables_cache: dict = {}
+# Sweep workers call from several threads: each cache entry is built once
+# under this lock, and the launch count adds under it.
+_lock = threading.Lock()
 
 
 def switched_on() -> bool:
@@ -73,21 +77,22 @@ def windowed_basis(n_fft: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 
     dev = torch.device(device)
     key = (n_fft, str(dev))
-    if key not in _basis_cache:
-        bins = 1 + n_fft // 2
-        bins_p = -(-bins // _BIN_TILE) * _BIN_TILE
-        i = np.arange(n_fft, dtype=np.int64)[:, None]
-        j = np.arange(bins_p, dtype=np.int64)[None, :]
-        ang = (2.0 * np.pi / n_fft) * ((i * j) % n_fft).astype(np.float64)
-        win = hann_window(n_fft).astype(np.float64)[:, None]
-        valid = j < bins
-        wcos = np.where(valid, win * np.cos(ang), 0.0).astype(np.float32)
-        wsin = np.where(valid, win * np.sin(ang), 0.0).astype(np.float32)
-        _basis_cache[key] = (
-            torch.from_numpy(wcos).to(dev).contiguous(),
-            torch.from_numpy(wsin).to(dev).contiguous(),
-        )
-    return _basis_cache[key]
+    with _lock:
+        if key not in _basis_cache:
+            bins = 1 + n_fft // 2
+            bins_p = -(-bins // _BIN_TILE) * _BIN_TILE
+            i = np.arange(n_fft, dtype=np.int64)[:, None]
+            j = np.arange(bins_p, dtype=np.int64)[None, :]
+            ang = (2.0 * np.pi / n_fft) * ((i * j) % n_fft).astype(np.float64)
+            win = hann_window(n_fft).astype(np.float64)[:, None]
+            valid = j < bins
+            wcos = np.where(valid, win * np.cos(ang), 0.0).astype(np.float32)
+            wsin = np.where(valid, win * np.sin(ang), 0.0).astype(np.float32)
+            _basis_cache[key] = (
+                torch.from_numpy(wcos).to(dev).contiguous(),
+                torch.from_numpy(wsin).to(dev).contiguous(),
+            )
+        return _basis_cache[key]
 
 
 def fft_tables(n_fft: int, device) -> torch.Tensor:
@@ -109,18 +114,19 @@ def fft_tables(n_fft: int, device) -> torch.Tensor:
         raise ValueError(f"the FFT kernel's tables exist for n_fft {KERNEL_N_FFT}, got {n_fft}")
     dev = torch.device(device)
     key = (n_fft, str(dev))
-    if key not in _tables_cache:
-        half = n_fft // 2
-        k1 = np.arange(32, dtype=np.int64)[:, None]
-        n2 = np.arange(32, dtype=np.int64)[None, :]
-        inner = (2.0 * np.pi / half) * ((k1 * n2) % half).astype(np.float64).reshape(-1)
-        untangle = (2.0 * np.pi / n_fft) * np.arange(half // 2, dtype=np.float64)
-        window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
-        flat = np.concatenate(
-            [0.5 * window, np.cos(inner), -np.sin(inner), np.cos(untangle), -np.sin(untangle)]
-        ).astype(np.float32)
-        _tables_cache[key] = torch.from_numpy(flat).to(dev).contiguous()
-    return _tables_cache[key]
+    with _lock:
+        if key not in _tables_cache:
+            half = n_fft // 2
+            k1 = np.arange(32, dtype=np.int64)[:, None]
+            n2 = np.arange(32, dtype=np.int64)[None, :]
+            inner = (2.0 * np.pi / half) * ((k1 * n2) % half).astype(np.float64).reshape(-1)
+            untangle = (2.0 * np.pi / n_fft) * np.arange(half // 2, dtype=np.float64)
+            window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
+            flat = np.concatenate(
+                [0.5 * window, np.cos(inner), -np.sin(inner), np.cos(untangle), -np.sin(untangle)]
+            ).astype(np.float32)
+            _tables_cache[key] = torch.from_numpy(flat).to(dev).contiguous()
+        return _tables_cache[key]
 
 
 # exp(-2*pi*i * t / 32) = _W32_COS[t] - i * _W32_SIN[t], t < 16: the literals of
@@ -316,7 +322,8 @@ def stft_magnitude(
         )
     if err != 0:
         raise RuntimeError(f"stft_magnitude kernel launch failed: CUDA error {err}")
-    stft_magnitude.launches += 1
+    with _lock:
+        stft_magnitude.launches += 1
     return out
 
 

@@ -27,6 +27,7 @@ and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,6 +37,8 @@ from .filters import median_filter_1d
 __all__ = ["median31", "median31_reference"]
 
 _SIZE = 31
+# Sweep workers launch from several threads: the counts add under it.
+_count_lock = threading.Lock()
 
 
 def median31_reference(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -93,11 +96,12 @@ def median31(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"median31 kernel launch failed: CUDA error {err}")
-    median31.launches += 1
-    if axis_time:
-        median31.launches_time += 1
-    else:
-        median31.launches_freq += 1
+    with _count_lock:
+        median31.launches += 1
+        if axis_time:
+            median31.launches_time += 1
+        else:
+            median31.launches_freq += 1
     return out
 
 

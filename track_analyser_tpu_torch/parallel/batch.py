@@ -11,10 +11,11 @@ axis).
   of one.
 - ``analyse_library`` streams a library through a bounded pipeline:
   decode + quantise workers, upload workers (pinned host buffers, one
-  side stream each), one batched dispatch per chunk of ``device_batch``
-  lanes of one bucket, and finish workers that read back, unpack lane by
-  lane, run the host finishers and (with ``output_dir``) render each
-  track's artefacts.
+  side stream each a device), one dispatch worker per device of the
+  sweep's ``mesh`` (each runs one batched graph per chunk of
+  ``device_batch`` lanes of one bucket, dealt to the workers in turn),
+  and finish workers that read back, unpack lane by lane, run the host
+  finishers and (with ``output_dir``) render each track's artefacts.
 
 Transports (host -> device payloads): "float32", "int16", "int8"
 (blockwise int8 per channel), "ms" (the mid channel only, as blockwise
@@ -34,6 +35,7 @@ payload covering the whole bucket.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -920,6 +922,47 @@ def _decode_payload(transport: str, parts: tuple) -> torch.Tensor:
     return torch.stack([y, y], dim=1)
 
 
+def _resolve_mesh(mesh: "Optional[Sequence[str | torch.device]]", device: "str | torch.device") -> "list[torch.device]":
+    """The sweep's devices, one dispatch worker each.
+
+    ``mesh=None`` takes them from ``device``: every visible card for
+    "cuda" (no index), that card for "cuda:N", the CPU for "cpu". Entries
+    may repeat. Raises ValueError for an empty mesh, a mesh that mixes
+    the CPU and CUDA, a device that is neither, or a card that is not
+    visible; RuntimeError for CUDA where there is none. CUDA entries come
+    back indexed, so that a card has one name."""
+
+    if mesh is None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        mesh = [dev]
+    entries = [torch.device(d) for d in mesh]
+    if not entries:
+        raise ValueError("mesh is empty: give at least one device")
+    names = [str(d) for d in entries]
+    kinds = {d.type for d in entries}
+    if not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"mesh devices must be CPU or CUDA devices, got {names}")
+    if len(kinds) > 1:
+        raise ValueError(f"mesh mixes the CPU and CUDA: {names}")
+    devs = [resolve_device(d) for d in entries]
+    if kinds == {"cpu"}:
+        return devs
+    devs = [torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index) for d in devs]
+    count = torch.cuda.device_count()
+    if any(d.index >= count for d in devs):
+        raise ValueError(f"mesh {names} names a card that is not visible ({count} visible)")
+    return devs
+
+
+def _on(dev: torch.device):
+    """``dev`` as this thread's current CUDA device inside the block (on
+    the CPU, nothing)."""
+
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 _upload_local = threading.local()
 
 
@@ -941,7 +984,7 @@ def _upload(parts: "Sequence[np.ndarray]", n_valid: "Sequence[int]", dev: torch.
     stream = streams.get(str(dev))
     if stream is None:
         stream = streams[str(dev)] = torch.cuda.Stream(device=dev)
-    with torch.cuda.stream(stream):
+    with _on(dev), torch.cuda.stream(stream):
         tensors = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in arrays]
         ready = torch.cuda.Event()
         ready.record(stream)
@@ -1074,6 +1117,7 @@ def analyse_library(
     *,
     seed: int = DEFAULT_SEED,
     device: "str | torch.device" = "cuda",
+    mesh: "Optional[Sequence[str | torch.device]]" = None,
     target_sr: int = DEFAULT_CONFIG.target_sr,
     decode_workers: Optional[int] = None,
     upload_streams: int = 2,
@@ -1088,8 +1132,8 @@ def analyse_library(
     shard: Optional[tuple] = None,
     report_request: "Optional[ReportRequest]" = None,
 ) -> "List[TrackAnalysisResult | TrackFailure | SkippedTrack]":
-    """Analyse a library of tracks on one device through a bounded
-    streaming pipeline.
+    """Analyse a library of tracks through a bounded streaming pipeline,
+    with one dispatch worker per device of ``mesh``.
 
     Returns one outcome per source, in order: a TrackAnalysisResult, a
     TrackFailure (the track could not be decoded or staged), or a
@@ -1097,20 +1141,34 @@ def analyse_library(
 
     Stages, each bounded so memory stays O(prefetch), not O(library):
       decode pool  -> decode + resample + pad + quantise (numpy);
-      upload pool  -> pinned staging and non-blocking copies, one side
-                      stream per worker, ordered before the dispatch by
-                      a CUDA event;
-      dispatch     -> one batched graph per chunk of up to
-                      ``device_batch`` tracks of one bucket, formed
-                      longest first, with its readback into pinned
-                      host buffers queued behind it (enqueued, not
-                      waited for);
-      finish pool  -> waits for the chunk's readback event, then lane
-                      by lane unpack and host finishers, manifest.
+      upload pool  -> pinned staging and non-blocking copies to the
+                      device of the worker the chunk is dealt to, on a
+                      side stream of the upload thread's own for that
+                      device, ordered before the dispatch by a CUDA event;
+      dispatch     -> the main thread forms chunks of up to
+                      ``device_batch`` tracks of one bucket, longest
+                      first, and deals them to the workers in turn; a
+                      worker runs one batched graph per chunk on its
+                      device, with the readback into pinned host buffers
+                      queued behind it (enqueued, not waited for), and
+                      holds at most ``max(upload_streams, 2) + 2`` chunks
+                      between upload and finish;
+      finish pool  -> one pool for all workers: waits for the chunk's
+                      readback event, then lane by lane unpack and host
+                      finishers, manifest.
 
-    ``device``: one card ("cuda", the default, raises without CUDA) or
-    "cpu" for the plain path. It takes the place of the JAX package's
-    ``mesh``; several cards are not ported yet.
+    ``mesh``: the devices to spread the chunks over, one worker each
+    (``torch.device`` or strings; all CUDA or all CPU; an entry may
+    repeat, and then that device runs two workers). None (the default)
+    takes the mesh from ``device``: every visible card for "cuda" (the
+    default; raises without CUDA), that card alone for "cuda:N", one
+    worker on the CPU for "cpu" (the plain path). ``device`` is not read
+    when ``mesh`` is given. The JAX sweep's chunk of ``n_devices x
+    device_batch`` lanes gives each device ``device_batch`` consecutive
+    lanes; dealing chunks of ``device_batch`` lanes in turn gives the same
+    groups, without padding lanes. A device error in any worker
+    propagates: the other workers stop, every pool shuts down, and the
+    sweep raises it.
 
     ``transport``: "ms" (default: mid-only blockwise int8, host-exact
     stereo values; mono and stereo tracks share chunks), "ms6" / "ms5"
@@ -1126,24 +1184,31 @@ def analyse_library(
     propagates.
 
     ``prewarm``: build the CUDA kernels' libraries while the first tracks
-    decode (default: on for a CUDA device). There is no executable to
-    compile: the port runs eagerly.
+    decode (default: on for CUDA). There is no executable to compile: the
+    port runs eagerly. The downbeat net is placed on every device of the
+    mesh before the first dispatch either way.
 
-    ``device_batch``: tracks per dispatch. Lanes of one chunk share a
-    bucket length; a chunk may hold fewer lanes than ``device_batch``.
+    ``prefetch_tracks``: decoded tracks held ahead of the dispatch
+    (default ``max(2 * len(mesh) * device_batch, 4)``).
+
+    ``device_batch``: tracks per device per dispatch. Lanes of one chunk
+    share a bucket length; a chunk may hold fewer lanes than
+    ``device_batch``.
 
     ``shard``: ``(index, count)`` for multi-process sweeps: this process
     analyses ``sources[i]`` where ``i % count == index`` and returns
     SkippedTrack(reason="other-shard") for the rest.
 
     ``output_dir``: render every track's artefacts
-    (``rendering.outputs.render_all``) into a subdirectory of its own,
-    named by the source file's stem (``track_<index>`` for a source
-    without a path). Plots need matplotlib. ``report_request`` (the
-    port's own option) picks the artefacts, e.g.
-    ``ReportRequest(include_plots=False)``; None renders them all.
+    (``rendering.outputs.render_all``, on the device its chunk ran on)
+    into a subdirectory of its own, named by the source file's stem
+    (``track_<index>`` for a source without a path). Plots need
+    matplotlib. ``report_request`` (the port's own option) picks the
+    artefacts, e.g. ``ReportRequest(include_plots=False)``; None renders
+    them all.
 
-    ``stage_seconds()`` sums each stage's time over the sweep.
+    ``stage_seconds()`` sums each stage's time over the sweep, its
+    threads and its devices.
     """
 
     _check_transport(transport)
@@ -1153,7 +1218,7 @@ def analyse_library(
         shard_index, shard_count = int(shard[0]), int(shard[1])
         if not (0 <= shard_index < shard_count):
             raise ValueError(f"shard index {shard_index} not in [0, {shard_count})")
-    dev = resolve_device(device)
+    devices = _resolve_mesh(mesh, device)
     n_lane = max(1, int(device_batch))
     bucket_for = _bucket_for(transport)
     # Decode and staging need the native host library: a failed build
@@ -1199,8 +1264,9 @@ def analyse_library(
             return idx, src, exc, None, None, None, None
         return idx, src, audio, n_bucket, payload, nv, host_exact
 
-    def _stage(chunk):
-        """Upload one chunk's stacked payload parts (on the upload pool)."""
+    def _stage(chunk, dev):
+        """Upload one chunk's stacked payload parts to ``dev`` (on the
+        upload pool)."""
 
         t0 = time.perf_counter()
         parts = [np.stack([item[3][p] for item in chunk]) for p in range(len(chunk[0][3]))]
@@ -1226,7 +1292,7 @@ def analyse_library(
             if progress_callback:
                 progress_callback(str(src), n_done, total)
 
-    def _finish(chunk, outs, events) -> None:
+    def _finish(chunk, outs, events, dev) -> None:
         t0 = time.perf_counter()
         fetched = _fetch(outs, events)
         for k, (idx, src, audio, _payload, _nv, host_exact) in enumerate(chunk):
@@ -1238,32 +1304,59 @@ def analyse_library(
                 from ..rendering import outputs as outputs_module
 
                 name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
-                with render_lock:
+                with render_lock, _on(dev):
                     outputs_module.render_all(
                         result, Path(output_dir) / name, report_request=report_request, device=dev
                     )
             _record(src, {"bpm": result.beat.bpm, "key": result.harmonic.primary_key.key})
         _count_stage("finish", time.perf_counter() - t0)
 
-    prefetch = prefetch_tracks or max(2 * n_lane, 4)
+    def _warm() -> None:
+        if prewarm:
+            cuda_build.build_all(_kernel_sources())  # one library serves every card
+        for dev in dict.fromkeys(devices):
+            with _on(dev):
+                _bundled_net(dev)
+
+    def _run_chunk(chunk, staged_future, dev):
+        """A worker's step: wait for the chunk's upload, dispatch its graph
+        on ``dev`` and hand its readback to a finisher, whose future it
+        returns."""
+
+        staged = staged_future.result()
+        warm.result()  # a kernel that does not build raises here
+        with _on(dev):
+            t0 = time.perf_counter()
+            outs, events = _dispatch(transport, staged, sr=target_sr)
+            _count_stage("dispatch", time.perf_counter() - t0)
+        return finish_pool.submit(_finish, chunk, outs, events, dev)
+
+    prefetch = prefetch_tracks or max(2 * len(devices) * n_lane, 4)
     stage_depth = max(upload_streams, 2)
+    # Per worker: stage_depth chunks awaiting their readback, one
+    # dispatching and one uploading.
+    max_in_flight = stage_depth + 2
     if decode_workers is None:
         # One core stays free for the dispatch and upload threads.
         decode_workers = max(1, min(4, (os.cpu_count() or 4) - 1))
+    if prewarm is None:
+        prewarm = devices[0].type == "cuda"
     decode_pool = ThreadPoolExecutor(max_workers=decode_workers)
     upload_pool = ThreadPoolExecutor(max_workers=upload_streams)
-    # One finisher per in-flight chunk plus one, so a finisher is free the
-    # moment a chunk is dispatched.
-    finish_pool = ThreadPoolExecutor(max_workers=stage_depth + 1)
+    workers = [
+        ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"analyse_library-worker{w}")
+        for w in range(len(devices))
+    ]
+    # One finisher per chunk that may await its readback, plus one, so a
+    # finisher is free the moment a chunk is dispatched.
+    finish_pool = ThreadPoolExecutor(max_workers=len(devices) * (stage_depth + 1) + 1)
     warm_pool = ThreadPoolExecutor(max_workers=1)
-    if prewarm is None:
-        prewarm = dev.type == "cuda"
-    warm = warm_pool.submit(cuda_build.build_all, _kernel_sources()) if prewarm else None
+    warm = warm_pool.submit(_warm)
 
     decode_q: deque = deque()  # futures of _load
     buckets: Dict[tuple, list] = {}  # (n_bucket, arity) -> items awaiting a chunk
-    staged_q: deque = deque()  # (chunk, future of _stage)
-    dispatched_q: deque = deque()  # futures of _finish
+    in_flight = [deque() for _ in devices]  # per worker: futures of _run_chunk
+    dealt = 0
     src_iter = iter(todo)
 
     def _pump_decodes() -> None:
@@ -1282,6 +1375,22 @@ def analyse_library(
         key = (n_bucket, len(payload))
         buckets.setdefault(key, []).append((idx, src, audio, payload, nv, host_exact))
 
+    def _deal(chunk) -> None:
+        """Give ``chunk`` to the next worker in turn; wait while that
+        worker holds ``max_in_flight`` chunks. A chunk that failed in any
+        worker raises here first."""
+
+        nonlocal dealt
+        for queue in in_flight:
+            while queue and queue[0].done() and queue[0].result().done():
+                queue.popleft().result().result()
+        w = dealt % len(devices)
+        dealt += 1
+        staged = upload_pool.submit(_stage, chunk, devices[w])
+        in_flight[w].append(workers[w].submit(_run_chunk, chunk, staged, devices[w]))
+        while len(in_flight[w]) > max_in_flight:
+            in_flight[w].popleft().result().result()
+
     def _form_chunks(flush: bool) -> None:
         for key in sorted(buckets):
             items = buckets[key]
@@ -1290,43 +1399,25 @@ def analyse_library(
             while len(items) >= n_lane or (flush and items):
                 chunk, items = items[:n_lane], items[n_lane:]
                 buckets[key] = items
-                staged_q.append((chunk, upload_pool.submit(_stage, chunk)))
+                _deal(chunk)
 
     try:
         _pump_decodes()
-        while True:
-            while decode_q and decode_q[0].done():
-                _absorb(decode_q.popleft().result())
-                _pump_decodes()
-            _form_chunks(flush=not decode_q)
-
-            if not staged_q:
-                if decode_q:  # nothing uploadable yet: block on decode
-                    _absorb(decode_q.popleft().result())
-                    _pump_decodes()
-                    continue
-                if any(buckets.values()):  # trailing partial chunks
-                    _form_chunks(flush=True)
-                    continue
-                break  # everything dispatched
-
-            chunk, staged_future = staged_q.popleft()
-            staged = staged_future.result()
-            if warm is not None:
-                warm.result()  # a kernel that does not build raises here
-                warm = None
-            t0 = time.perf_counter()
-            outs, events = _dispatch(transport, staged, sr=target_sr)
-            _count_stage("dispatch", time.perf_counter() - t0)
-            dispatched_q.append(finish_pool.submit(_finish, chunk, outs, events))
-            while len(dispatched_q) > stage_depth:
-                dispatched_q.popleft().result()
-        while dispatched_q:
-            dispatched_q.popleft().result()
+        while decode_q:
+            _absorb(decode_q.popleft().result())
+            _pump_decodes()
+            if not (decode_q and decode_q[0].done()):
+                # Every finished decode is in: form chunks (the trailing
+                # partial ones once nothing is left to decode).
+                _form_chunks(flush=not decode_q)
+        for queue in in_flight:
+            while queue:
+                queue.popleft().result().result()
     finally:
-        decode_pool.shutdown(wait=True)
-        upload_pool.shutdown(wait=True)
-        finish_pool.shutdown(wait=True)
-        warm_pool.shutdown(wait=True)
+        # On an error, work not yet started is dropped; what runs ends
+        # on its own (a worker waiting on a dropped upload gets
+        # CancelledError), so nothing is left running.
+        for pool in (decode_pool, upload_pool, *workers, finish_pool, warm_pool):
+            pool.shutdown(wait=True, cancel_futures=True)
 
     return results
