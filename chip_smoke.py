@@ -11,9 +11,13 @@ Phases (any failure exits non-zero and prints no result line):
      failed libta_native build fails the run;
   3. the median31 kernel against its plain PyTorch version on the card,
      along both axes, at the main paths' shapes (one lane and a batch of
-     four lanes) and at ragged shapes (bit-identical), all timed with CUDA
-     events beside the bound and beside the library call (one unchunked
-     unfold + median over a reflect-padded copy, bit-identical too);
+     four lanes), at ragged shapes and at axes shorter than the window
+     ((7, 20), (40, 9), (1, 5)), on uniform and on tie-heavy values (8
+     levels with exact zeros), bit-identical; its run length and min/max
+     per output as the port's generator reports them; all timed with CUDA
+     events beside both bounds (bytes; the network's min/max) and beside
+     the library call (one unchunked unfold + median over a reflect-padded
+     copy, bit-identical too);
   4. the single-track path: analyse_track(path, device="cuda") on a
      synthetic 181 s 44.1 kHz stereo WAV (bench.py's asserted fixture: 118
      BPM, seed 0) with transport "auto" (= "ms"), cold and warm; the median
@@ -227,13 +231,17 @@ FP32_FLOP_PER_S = 67e12
 # the untangle of the real spectrum (~14 per bin) and the magnitude (4 per
 # bin).
 STFT_FLOP_PER_FRAME = 5 * 1024 * 10 + 2048 + 14 * 1024 + 4 * 1025
-# The medians' operations are float min/max: 351 per output (counted in
-# the kernel's SASS), issued at 64 per SM per clock on compute capability
-# 9.0 (the CUDA C++ programming guide's throughput table, "compare,
-# minimum, maximum"); 132 SMs at the card's maximum SM clock.
-MEDIAN_MINMAX_PER_OUTPUT = 351
+# The medians' operations are float min/max, as many per output as the
+# kernel's generated network runs (median_network), issued at 64 per SM per
+# clock on compute capability 9.0 (the CUDA C++ programming guide's
+# throughput table, "compare, minimum, maximum"); 132 SMs at the card's
+# maximum SM clock.
 MINMAX_PER_SM_CLOCK = 64
 SMS = 132
+# The median kernel takes 0.02-0.25 ms, as little as its wrapper's host
+# work (allocation, stream, ctypes): it is timed over this many launches
+# back to back (time_cuda_ms).
+MEDIAN_TIMED_LAUNCHES = 20
 
 
 class SmokeFailure(AssertionError):
@@ -331,8 +339,11 @@ def with_noise_floor(x: np.ndarray, seed: int) -> np.ndarray:
     return x + np.random.default_rng(seed).normal(0.0, 0.003, x.shape).astype(np.float32)
 
 
-def time_cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the card, CUDA events around each run."""
+def time_cuda_ms(fn, reps: int = 15, warmup: int = 3, launches: int = 1) -> float:
+    """Median milliseconds of ``fn`` on the card, CUDA events around each
+    run of ``launches`` calls back to back, divided by ``launches``: with
+    more than one, the host's work for the next call overlaps the card's
+    for this one, so a short kernel is timed without its launch gap."""
 
     import torch
 
@@ -344,10 +355,11 @@ def time_cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)
 
 
@@ -357,6 +369,42 @@ def bound(nbytes: float, seconds_of_work: float) -> tuple[float, str]:
 
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, seconds_of_work) * 1e3, "bytes" if t_bytes >= seconds_of_work else "operations")
+
+
+def median_network(axis: int) -> tuple[int, float]:
+    """(outputs a thread, min/max per output) of the median kernel along
+    ``axis`` (-1 time, -2 frequency): the network it runs, as the port's
+    generator (ops/median.tile_network) reports it."""
+
+    from track_analyser_tpu_torch.ops import median
+
+    r = median.RUN_TIME if axis == -1 else median.RUN_FREQ
+    return r, median.tile_network(r).per_output
+
+
+def median_bound(numel: int, axis: int, minmax_per_s: float) -> dict:
+    """The median kernel's bound on ``numel`` float32 outputs along
+    ``axis``: the bytes of one read and one write over the memory rate, the
+    network's min/max over their peak rate; the larger binds."""
+
+    r, per_output = median_network(axis)
+    nbytes = 2 * numel * 4
+    seconds_of_work = per_output * numel / minmax_per_s
+    bound_ms, bound_by = bound(nbytes, seconds_of_work)
+    return {
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations_bound_ms": seconds_of_work * 1e3, "r": r, "minmax_per_output": per_output,
+    }
+
+
+def bound_shares(b: dict, kernel_ms: float) -> str:
+    """Both bounds of ``median_bound`` with their shares of ``kernel_ms``."""
+
+    return (
+        f"bytes bound {b['bytes_bound_ms']:.4f} ms ({100 * b['bytes_bound_ms'] / kernel_ms:.1f}%), operations bound "
+        f"{b['operations_bound_ms']:.4f} ms at {b['minmax_per_output']:g} min/max per output, runs of {b['r']} "
+        f"({100 * b['operations_bound_ms'] / kernel_ms:.1f}%); {b['bound_by']} bind"
+    )
 
 
 def numeric_leaves(obj, prefix: str = "result"):
@@ -1294,13 +1342,13 @@ def sharded_phase(card: str, path_launches: dict, main_track: np.ndarray, minmax
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             check(torch.equal(got, ref), f"median31 axis {axis} shape {shape}: max |diff| {err}")
-            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis), launches=MEDIAN_TIMED_LAUNCHES)
             plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
-            bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
-            timings[(world, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            b = median_bound(x.numel(), axis, minmax_per_s)
+            timings[(world, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, **b, "max_abs_err": err}
             print(
                 f"{REPLACES[axis][0]} at world {world}'s per-rank shape {shape}: bit-identical; kernel {kernel_ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
+                f"plain {plain_ms:.4f} ms, {bound_shares(b, kernel_ms)} -- {card}"
             )
         del x, got, ref
     return timings
@@ -1571,11 +1619,11 @@ def independent_phase(card: str, launches: "Launches", path_launches: dict, minm
         shape = max((s[:3] for s in median_shapes if s[1] == n_rows), key=lambda s: s[2])
         x = torch.rand(shape, device="cuda", generator=gen)
         for axis in (-1, -2):
-            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis), launches=MEDIAN_TIMED_LAUNCHES)
             plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
-            bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
-            timings[(key, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
-            print(f"{REPLACES[axis][0]} at the {key}'s {shape}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}")
+            b = median_bound(x.numel(), axis, minmax_per_s)
+            timings[(key, axis)] = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms, **b, "max_abs_err": 0.0}
+            print(f"{REPLACES[axis][0]} at the {key}'s {shape}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {bound_shares(b, kernel_ms)} -- {card}")
         del x
     distinct = sorted(set(stft_shapes))
     print(f"stft_magnitude launch shapes (channels, samples): {distinct}")
@@ -1957,22 +2005,30 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     batch_shape = (SWEEP_BATCH,) + MAIN_SHAPE
-    for shape in (MAIN_SHAPE, batch_shape, (33, 513), (1025, 65), (2, 1025, 4097)):
-        x = torch.rand(shape, device="cuda", generator=gen)
-        for axis in (-1, -2):
-            got = median.median31(x, axis)
-            ref = median.median31_reference(x, axis)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            errs[axis] = max(errs.get(axis, 0.0), err)
-            check(torch.equal(got, ref), f"median31 axis {axis} shape {shape}: max |diff| {err}")
-            print(f"shape {shape} axis {axis}: bit-identical")
-        del x, got, ref
+    for axis in (-1, -2):
+        r, per_output = median_network(axis)
+        print(f"{REPLACES[axis][0]}: runs of {r} outputs a thread, {per_output:g} min/max per output (ops/median.tile_network)")
+    # Uniform values, and tie-heavy ones: 8 levels with exact zeros. (7, 20),
+    # (40, 9) and (1, 5) are shorter than the window: the reflection bounces.
+    for shape in (MAIN_SHAPE, batch_shape, (33, 513), (1025, 65), (2, 1025, 4097), (7, 20), (40, 9), (1, 5), (3, 33, 100)):
+        for values in ("uniform", "8 levels"):
+            x = torch.rand(shape, device="cuda", generator=gen)
+            if values == "8 levels":
+                x = torch.floor(x * 8) / 8
+            for axis in (-1, -2):
+                got = median.median31(x, axis)
+                ref = median.median31_reference(x, axis)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                errs[axis] = max(errs.get(axis, 0.0), err)
+                check(torch.equal(got, ref), f"median31 axis {axis} shape {shape} ({values}): max |diff| {err}")
+                print(f"shape {shape} axis {axis} ({values}): bit-identical")
+            del x, got, ref
     median_timings = {}
     for shape in (MAIN_SHAPE, batch_shape):
         x = torch.rand(shape, device="cuda", generator=gen)
         for axis in (-1, -2):
-            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            kernel_ms = time_cuda_ms(lambda: median.median31(x, axis), launches=MEDIAN_TIMED_LAUNCHES)
             plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
             # The library call: one unchunked unfold + median over a
             # reflect-padded copy (the copy is made outside the timing).
@@ -1983,13 +2039,15 @@ def main() -> None:
             check(torch.equal(library(), median.median31(x, axis)), f"median library call at {shape} axis {axis}")
             library_ms = time_cuda_ms(library, reps=5, warmup=1)
             del padded
-            bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
-            median_timings[(shape, axis)] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
+            b = median_bound(x.numel(), axis, minmax_per_s)
+            one_call_ms = time_cuda_ms(lambda: median.median31(x, axis))
+            median_timings[(shape, axis)] = {"ms": kernel_ms, "one_call_ms": one_call_ms, "plain_ms": plain_ms, "library_ms": library_ms, **b}
             gbps = 2 * x.numel() * 4 / (kernel_ms * 1e-3) / 1e9
             print(
                 f"{REPLACES[axis][0]} at {shape}: kernel {kernel_ms:.4f} ms ({gbps:.0f} GB/s of one read + "
-                f"one write), plain {plain_ms:.4f} ms, library call (unfold + median, unchunked) "
-                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) -- {card}"
+                f"one write; {MEDIAN_TIMED_LAUNCHES} launches back to back), one call with its launch gap "
+                f"{one_call_ms:.4f} ms, plain {plain_ms:.4f} ms, library call (unfold + median, unchunked) "
+                f"{library_ms:.4f} ms, {bound_shares(b, kernel_ms)} -- {card}"
             )
         del x
 
@@ -2295,13 +2353,13 @@ def main() -> None:
         errs[axis] = max(errs[axis], err)
         check(torch.equal(got, ref), f"median31 axis {axis} shape {STEMS_SHAPE}: max |diff| {err}")
         del got, ref
-        kernel_ms = time_cuda_ms(lambda: median.median31(x, axis))
+        kernel_ms = time_cuda_ms(lambda: median.median31(x, axis), launches=MEDIAN_TIMED_LAUNCHES)
         plain_ms = time_cuda_ms(lambda: median.median31_reference(x, axis), reps=5, warmup=1)
-        bound_ms, bound_by = bound(2 * x.numel() * 4, MEDIAN_MINMAX_PER_OUTPUT * x.numel() / minmax_per_s)
-        stems_median[axis] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        b = median_bound(x.numel(), axis, minmax_per_s)
+        stems_median[axis] = {"ms": kernel_ms, "plain_ms": plain_ms, **b}
         print(
             f"{REPLACES[axis][0]} at {STEMS_SHAPE}: bit-identical; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of the kernel's time -- {card}"
+            f"{bound_shares(b, kernel_ms)} -- {card}"
         )
     del x
 
@@ -2573,18 +2631,18 @@ def main() -> None:
     kernels = []
     for axis in (-1, -2):
         name, replaces = REPLACES[axis]
-        kernel_ms, plain_ms, bound_ms, bound_by, library_ms = median_timings[(batch_shape, axis)]
-        stems_ms, stems_plain_ms, stems_bound_ms, stems_bound_by = stems_median[axis]
+        timing = median_timings[(batch_shape, axis)]
+        stems = stems_median[axis]
         kernels.append(
             {
                 "name": name, "route": "cuda", "source": MEDIAN_SOURCE, "replaces": replaces,
-                "launches": total[name], "ms": kernel_ms, "plain_ms": plain_ms,
+                "launches": total[name],
                 "max_abs_err": max([errs[axis]] + [sharded_timings[(w, axis)]["max_abs_err"] for w in (1, 2)]),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                **timing,  # ms, plain_ms, library_ms, both bounds, r and minmax_per_output
                 "shape": list(batch_shape), "launches_by_path": {k: v[name] for k, v in path_launches.items()},
-                "one_lane": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), median_timings[(MAIN_SHAPE, axis)])),
-                "stems_shape": list(STEMS_SHAPE), "stems_ms": stems_ms, "stems_plain_ms": stems_plain_ms,
-                "stems_bound_ms": stems_bound_ms, "stems_bound_by": stems_bound_by,
+                "one_lane": median_timings[(MAIN_SHAPE, axis)],
+                "stems_shape": list(STEMS_SHAPE), "stems_ms": stems["ms"], "stems_plain_ms": stems["plain_ms"],
+                "stems_bound_ms": stems["bound_ms"], "stems_bound_by": stems["bound_by"],
                 "sharded_per_rank": {f"world {w}": sharded_timings[(w, axis)] for w in (1, 2)},
                 "independent_22050": {k: independent_timings[(k, axis)] for k in ("analysis", "separator")},
             }

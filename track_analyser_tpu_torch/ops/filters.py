@@ -5,7 +5,10 @@ reflect boundary), with the two branches of the JAX reference: shifted
 multiply-adds for kernels of at most 48 taps, one FFT convolution above
 that. ``median_filter_1d`` is the plain sliding median; HPSS's two
 medians of 31 go through ``ops/median.median31``, which launches a
-hand-written CUDA kernel for tensors on the card.
+hand-written CUDA kernel for tensors on the card: each thread computes 16
+neighbouring outputs, whose windows share a sorted core, with 32.375
+min/max an output (``ops/median.tile_network``), so the bytes it must
+move bound the kernel, not its min/max.
 """
 
 from __future__ import annotations
