@@ -1,0 +1,86 @@
+"""The readings the limits of ``correct`` are set from, for one cell.
+
+    python -m h100_bench.calibrate --workload single-cd44k --seeds 1 2 3 --control-seeds 1 2 3
+
+For each seed, in one process: the corpus, one traced-stretch's worth of
+the cell's traffic through the program (a cycle of the corpus, or one
+sweep call), the plain reference, and, for the control seeds, the
+reference again in float32 with TF32 (the precision below the
+configuration's float32 with TF32 off) in the program's place. Prints one
+JSON line a seed with the compared numbers of the program (the lower
+readings) and of the control (the upper readings), each with the field
+where it lies, and the worst gap of every compared field.
+Not part of a benchmark run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+from . import correct
+from .drive import Driver, Outcome
+from .gen import corpus
+from .harness import _reference, bucket_of, compare
+from .spec import Spec
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _per_field(outcomes, refs: dict, tracks) -> dict:
+    """{field: [number, worst gap, file]} over ``outcomes``."""
+
+    out: dict = {}
+    for o in outcomes:
+        t = tracks[o.track]
+        for where, (number, gap) in correct.field_gaps(o.result, refs[o.track]).items():
+            if where not in out or gap > out[where][1]:
+                out[where] = [number, gap, Path(t.path).name]
+    return out
+
+
+def readings(spec: Spec, cell_name: str, seed: int, control: bool, device: str = "cuda") -> dict:
+    cell = spec.cell(cell_name)
+    work = Path(tempfile.mkdtemp(prefix=f"h100_bench_cal_{cell.name}_"))
+    try:
+        t0 = time.perf_counter()
+        tracks = corpus.build(cell.config, seed, work)
+        driver = Driver(cell.traffic, cell.config, tracks, seed, device, work)
+        driver.warm(bucket_of)
+        served = [o for o in driver.stretch() if o.error is None]
+        t_ref = time.perf_counter()
+        refs = _reference(tracks, [o.track for o in served], device, tf32=False)
+        line = {"cell": cell.name, "seed": seed, "served": len(served),
+                "reference_s": time.perf_counter() - t_ref,
+                "program": {k: list(v) for k, v in compare(served, refs, tracks).worst.items()},
+                "program_fields": _per_field(served, refs, tracks)}
+        if control:
+            ctl = _reference(tracks, sorted(refs), device, tf32=True)
+            as_served = [Outcome(o.track, ctl[o.track]) for o in served]
+            line["control"] = {k: list(v) for k, v in compare(as_served, refs, tracks).worst.items()}
+            line["control_fields"] = _per_field(as_served, refs, tracks)
+        line["seconds"] = time.perf_counter() - t0
+        return line
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
+    args = ap.parse_args(argv)
+    spec = Spec(ROOT)
+    for seed in args.seeds:
+        print(json.dumps(readings(spec, args.workload, seed, seed in args.control_seeds)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
