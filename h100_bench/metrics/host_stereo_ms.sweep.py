@@ -1,0 +1,8 @@
+"""host_stereo_ms.sweep: the program's stage_seconds()["host_stereo"] over the window,
+per served clip (summed over the sweep's threads)."""
+
+from h100_bench.readers import per_track_ms
+
+
+def read(ctx):
+    return per_track_ms(ctx, "host_stereo")

@@ -39,7 +39,6 @@ import contextlib
 import json
 import os
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -63,6 +62,7 @@ from ..native import binding as native_binding
 from ..ops import cuda_build, fused_stft
 from ..ops.stft import fft_frequencies, hann_window
 from ..pipeline import TrackAnalysisResult
+from ..profiling import close_wait, count_seconds, on_track, reset_stage_seconds, span, stage_seconds, stamp
 from ..stereo import StereoAnalysis, StereoWidthBands
 from ..substrate import bucket_length, full_track_graph, pack_outputs, unpack_outputs
 from ..utils import AudioInput, coerce_audio, deterministic_rng
@@ -111,46 +111,22 @@ class SkippedTrack:
 # Process-wide host -> device byte counter: the payload bytes each upload
 # hands to the card (n_valid included).
 _UPLOAD_BYTES = [0]
-# Process-wide seconds per sweep stage, summed over tracks or chunks
-# (see analyse_library); instrumentation read by chip_smoke.py.
-_STAGE_SECONDS: Dict[str, float] = {}
-_counters_lock = threading.Lock()
+_upload_lock = threading.Lock()
 
 
 def _count_upload(nbytes: int) -> None:
-    with _counters_lock:
+    with _upload_lock:
         _UPLOAD_BYTES[0] += int(nbytes)
 
 
 def reset_upload_bytes() -> None:
-    with _counters_lock:
+    with _upload_lock:
         _UPLOAD_BYTES[0] = 0
 
 
 def upload_bytes() -> int:
-    with _counters_lock:
+    with _upload_lock:
         return _UPLOAD_BYTES[0]
-
-
-def _count_stage(name: str, seconds: float) -> None:
-    with _counters_lock:
-        _STAGE_SECONDS[name] = _STAGE_SECONDS.get(name, 0.0) + seconds
-
-
-def reset_stage_seconds() -> None:
-    with _counters_lock:
-        _STAGE_SECONDS.clear()
-
-
-def stage_seconds() -> Dict[str, float]:
-    """Seconds per stage since the last reset: "decode" (coerce_audio),
-    "quantise" (host staging), "upload" (host time to stage and enqueue
-    the copies), "dispatch" (host time to enqueue a chunk's graph),
-    "graph" (the graph on the device, CUDA events; absent on the CPU),
-    "finish" (readback, unpack and host finishers)."""
-
-    with _counters_lock:
-        return dict(_STAGE_SECONDS)
 
 
 def _rms_hop(sr: int, seconds: float) -> int:
@@ -175,170 +151,173 @@ def result_from_graph_outputs(
     duration = n / float(sr)
     rng = deterministic_rng(seed)
 
-    env = np.asarray(out["onset_env"], dtype=np.float64)[:f_valid]
-
-    # --- beats (ac=None -> float64 host autocorrelation) -----------------
-    grid, bpm = tempo_mod.grid_and_bpm_from_env(env, None, duration, sr, hop_length=hop)
-    tracked_times = tempo_mod.track_beats(
-        env,
-        sr,
-        hop_length=hop,
-        bpm=bpm,
-        low_energy=np.asarray(out["low_energy"], dtype=np.float64)[:f_valid],
-    )
-    beat_result = beats_mod.build_beat_analysis(
-        bpm, grid["time"], sr, hop_length=hop, grid=grid, tracked_times=tracked_times,
-    )
-
-    # --- downbeats (accent + optional net evidence) -----------------------
-    net_prob = out.get("net_prob")
-    if net_prob is not None:
-        net_prob = np.asarray(net_prob, dtype=np.float64)[:f_valid]
-    # Drift-following tracked beats are the downbeat time base when the
-    # tracker produced a sane sequence; the constant grid otherwise.
-    db_base = (
-        tracked_times
-        if tracked_times is not None and len(tracked_times) >= 8
-        else np.asarray(beat_result.beat_times, dtype=float)
-    )
-    tracked = downbeat_model.decode_from_accent(
-        np.asarray(out["beat_energy"], dtype=np.float64)[:f_valid],
-        np.asarray(out["low_energy"], dtype=np.float64)[:f_valid],
-        np.asarray(db_base, dtype=float),
-        sr,
-        flux=env,
-        net_prob=net_prob,
-        chroma=np.asarray(out["chroma_cq"], dtype=np.float64)[:, :f_valid],
-    )
-    if tracked is not None and tracked.downbeat_times:
-        downbeat_result = beats_mod.DownbeatAnalysis(
-            downbeat_times=tracked.downbeat_times,
-            beat_positions=tracked.beat_positions,
-            source=tracked.source,
+    # One span a section; the sections after harmony draw nothing from rng.
+    with span("finish.beats"):
+        env = np.asarray(out["onset_env"], dtype=np.float64)[:f_valid]
+        # ac=None: the float64 host autocorrelation
+        grid, bpm = tempo_mod.grid_and_bpm_from_env(env, None, duration, sr, hop_length=hop)
+        tracked_times = tempo_mod.track_beats(
+            env,
+            sr,
+            hop_length=hop,
+            bpm=bpm,
+            low_energy=np.asarray(out["low_energy"], dtype=np.float64)[:f_valid],
         )
-    else:
-        downbeat_result = beats_mod._fallback_downbeats(beat_result)
-
-    # --- structure --------------------------------------------------------
-    structure_result = structure_mod.segments_from_curves(
-        np.asarray(out["novelty"], dtype=np.float64)[:f_valid],
-        np.asarray(out["energy_novelty"], dtype=np.float64)[:f_valid],
-        np.asarray(out["perc_col"], dtype=np.float64)[:f_valid],
-        np.asarray(out["harm_col"], dtype=np.float64)[:f_valid],
-        beat_result,
-        sample_rate=sr,
-        hop_length=hop,
-        duration=duration,
-    )
-
-    # --- loudness ---------------------------------------------------------
-    st_n = 1 + n // _rms_hop(sr, DEFAULT_CONFIG.short_term_seconds)
-    mo_n = 1 + n // _rms_hop(sr, DEFAULT_CONFIG.loudness_block_seconds)
-    short_term = np.asarray(out["short_term_db"], dtype=float)[:st_n]
-    momentary = np.asarray(out["momentary_db"], dtype=float)[:mo_n]
-    lra = float(np.percentile(momentary, 95) - np.percentile(momentary, 5))
-    loudness_result = loudness_mod.LoudnessAnalysis(
-        integrated_lufs=float(out["integrated_lufs"]),
-        short_term_lufs=short_term.tolist(),
-        momentary_lufs=momentary.tolist(),
-        loudness_range=lra,
-        true_peak_dbfs=float(20.0 * np.log10(float(out["true_peak"]) + 1e-12)),
-        rms_dbfs=float(20.0 * np.log10(float(out["rms"]) + 1e-12)),
-    )
-
-    # --- harmony ----------------------------------------------------------
-    keys = [f"{p} major" for p in harmony_mod.PITCH_CLASS_NAMES]
-    keys += [f"{p} minor" for p in harmony_mod.PITCH_CLASS_NAMES]
-    key_result = harmony_mod._keys_from_scores(
-        np.asarray(out["key_scores"], dtype=np.float64), keys
-    )
-    chroma_cq = np.asarray(out["chroma_cq"], dtype=np.float64)[:, :f_valid]
-    chord_hints = harmony_mod._estimate_chords(chroma_cq, beat_result, rng)
-    change_points = harmony_mod._detect_chord_changes(chroma_cq, beat_result, chord_hints)
-
-    total = float(out["balance_total"])
-    if total > 0:
-        balance = harmony_mod.SpectralBalance(
-            low_band=float(out["balance_low"]) / total,
-            mid_band=float(out["balance_mid"]) / total,
-            high_band=float(out["balance_high"]) / total,
+        beat_result = beats_mod.build_beat_analysis(
+            bpm, grid["time"], sr, hop_length=hop, grid=grid, tracked_times=tracked_times,
         )
-    else:
-        balance = harmony_mod.SpectralBalance(0.0, 0.0, 0.0)
 
-    if audio.stereo_samples is None:
-        stereo_image = harmony_mod.StereoImage(correlation=1.0, balance=0.0)
-    else:
-        stereo_image = harmony_mod.StereoImage(
+    with span("finish.downbeats"):
+        # accent + optional net evidence
+        net_prob = out.get("net_prob")
+        if net_prob is not None:
+            net_prob = np.asarray(net_prob, dtype=np.float64)[:f_valid]
+        # Drift-following tracked beats are the downbeat time base when the
+        # tracker produced a sane sequence; the constant grid otherwise.
+        db_base = (
+            tracked_times
+            if tracked_times is not None and len(tracked_times) >= 8
+            else np.asarray(beat_result.beat_times, dtype=float)
+        )
+        tracked = downbeat_model.decode_from_accent(
+            np.asarray(out["beat_energy"], dtype=np.float64)[:f_valid],
+            np.asarray(out["low_energy"], dtype=np.float64)[:f_valid],
+            np.asarray(db_base, dtype=float),
+            sr,
+            flux=env,
+            net_prob=net_prob,
+            chroma=np.asarray(out["chroma_cq"], dtype=np.float64)[:, :f_valid],
+        )
+        if tracked is not None and tracked.downbeat_times:
+            downbeat_result = beats_mod.DownbeatAnalysis(
+                downbeat_times=tracked.downbeat_times,
+                beat_positions=tracked.beat_positions,
+                source=tracked.source,
+            )
+        else:
+            downbeat_result = beats_mod._fallback_downbeats(beat_result)
+
+    with span("finish.structure"):
+        structure_result = structure_mod.segments_from_curves(
+            np.asarray(out["novelty"], dtype=np.float64)[:f_valid],
+            np.asarray(out["energy_novelty"], dtype=np.float64)[:f_valid],
+            np.asarray(out["perc_col"], dtype=np.float64)[:f_valid],
+            np.asarray(out["harm_col"], dtype=np.float64)[:f_valid],
+            beat_result,
+            sample_rate=sr,
+            hop_length=hop,
+            duration=duration,
+        )
+
+    with span("finish.harmony"):
+        keys = [f"{p} major" for p in harmony_mod.PITCH_CLASS_NAMES]
+        keys += [f"{p} minor" for p in harmony_mod.PITCH_CLASS_NAMES]
+        key_result = harmony_mod._keys_from_scores(
+            np.asarray(out["key_scores"], dtype=np.float64), keys
+        )
+        chroma_cq = np.asarray(out["chroma_cq"], dtype=np.float64)[:, :f_valid]
+        chord_hints = harmony_mod._estimate_chords(chroma_cq, beat_result, rng)
+        change_points = harmony_mod._detect_chord_changes(chroma_cq, beat_result, chord_hints)
+
+        total = float(out["balance_total"])
+        if total > 0:
+            balance = harmony_mod.SpectralBalance(
+                low_band=float(out["balance_low"]) / total,
+                mid_band=float(out["balance_mid"]) / total,
+                high_band=float(out["balance_high"]) / total,
+            )
+        else:
+            balance = harmony_mod.SpectralBalance(0.0, 0.0, 0.0)
+
+        if audio.stereo_samples is None:
+            stereo_image = harmony_mod.StereoImage(correlation=1.0, balance=0.0)
+        else:
+            stereo_image = harmony_mod.StereoImage(
+                correlation=float(out["stereo_corr_centered"]),
+                balance=float(out["stereo_balance"]),
+            )
+
+        start_offset = (
+            downbeat_result.downbeat_times[0]
+            if downbeat_result and downbeat_result.downbeat_times
+            else (beat_result.beat_times[0] if beat_result.beat_times else 0.0)
+        )
+        hook = harmony_mod._generate_midi(
+            chroma_cq, beat_result, key_result.best, rng, name="hook", start_offset=start_offset
+        )
+        bass = harmony_mod._generate_midi(
+            chroma_cq,
+            beat_result,
+            key_result.best,
+            rng,
+            name="bass",
+            octave=-1,
+            start_offset=start_offset,
+        )
+        harmonic_result = harmony_mod.HarmonyAnalysis(
+            spectral_balance=balance,
+            stereo_image=stereo_image,
+            primary_key=key_result.best,
+            secondary_key=key_result.second_best,
+            chord_hints=chord_hints,
+            chord_change_points=change_points,
+            hook_suggestion=hook,
+            bass_suggestion=bass,
+        )
+
+    with span("finish.rest"):
+        # --- loudness ---------------------------------------------------------
+        st_n = 1 + n // _rms_hop(sr, DEFAULT_CONFIG.short_term_seconds)
+        mo_n = 1 + n // _rms_hop(sr, DEFAULT_CONFIG.loudness_block_seconds)
+        short_term = np.asarray(out["short_term_db"], dtype=float)[:st_n]
+        momentary = np.asarray(out["momentary_db"], dtype=float)[:mo_n]
+        lra = float(np.percentile(momentary, 95) - np.percentile(momentary, 5))
+        loudness_result = loudness_mod.LoudnessAnalysis(
+            integrated_lufs=float(out["integrated_lufs"]),
+            short_term_lufs=short_term.tolist(),
+            momentary_lufs=momentary.tolist(),
+            loudness_range=lra,
+            true_peak_dbfs=float(20.0 * np.log10(float(out["true_peak"]) + 1e-12)),
+            rms_dbfs=float(20.0 * np.log10(float(out["rms"]) + 1e-12)),
+        )
+
+        # --- features ---------------------------------------------------------
+        features_result = FeatureAnalysis(
+            ltas=LongTermAverageSpectrum(
+                frequencies=fft_frequencies(sr, DEFAULT_CONFIG.n_fft),
+                magnitude=np.asarray(out["ltas"], dtype=np.float64)[
+                    : 1 + DEFAULT_CONFIG.n_fft // 2
+                ],
+            ),
+            spectral_centroid=FeatureSeries(
+                values=np.asarray(out["centroid"], dtype=np.float64)[:f_valid]
+            ),
+            spectral_rolloff=FeatureSeries(
+                values=np.asarray(out["rolloff"], dtype=np.float64)[:f_valid]
+            ),
+        )
+
+        # --- stereo -----------------------------------------------------------
+        widths = np.asarray(out["stereo_widths"], dtype=np.float64)
+        stereo_result = StereoAnalysis(
+            mid_rms=float(out["mid_rms"]),
+            side_rms=float(out["side_rms"]),
             correlation=float(out["stereo_corr_centered"]),
-            balance=float(out["stereo_balance"]),
+            width=StereoWidthBands(
+                low=float(widths[0]), mid=float(widths[1]), high=float(widths[2])
+            ),
         )
 
-    start_offset = (
-        downbeat_result.downbeat_times[0]
-        if downbeat_result and downbeat_result.downbeat_times
-        else (beat_result.beat_times[0] if beat_result.beat_times else 0.0)
-    )
-    hook = harmony_mod._generate_midi(
-        chroma_cq, beat_result, key_result.best, rng, name="hook", start_offset=start_offset
-    )
-    bass = harmony_mod._generate_midi(
-        chroma_cq,
-        beat_result,
-        key_result.best,
-        rng,
-        name="bass",
-        octave=-1,
-        start_offset=start_offset,
-    )
-    harmonic_result = harmony_mod.HarmonyAnalysis(
-        spectral_balance=balance,
-        stereo_image=stereo_image,
-        primary_key=key_result.best,
-        secondary_key=key_result.second_best,
-        chord_hints=chord_hints,
-        chord_change_points=change_points,
-        hook_suggestion=hook,
-        bass_suggestion=bass,
-    )
-
-    # --- features ---------------------------------------------------------
-    features_result = FeatureAnalysis(
-        ltas=LongTermAverageSpectrum(
-            frequencies=fft_frequencies(sr, DEFAULT_CONFIG.n_fft),
-            magnitude=np.asarray(out["ltas"], dtype=np.float64)[
-                : 1 + DEFAULT_CONFIG.n_fft // 2
-            ],
-        ),
-        spectral_centroid=FeatureSeries(
-            values=np.asarray(out["centroid"], dtype=np.float64)[:f_valid]
-        ),
-        spectral_rolloff=FeatureSeries(
-            values=np.asarray(out["rolloff"], dtype=np.float64)[:f_valid]
-        ),
-    )
-
-    # --- stereo -----------------------------------------------------------
-    widths = np.asarray(out["stereo_widths"], dtype=np.float64)
-    stereo_result = StereoAnalysis(
-        mid_rms=float(out["mid_rms"]),
-        side_rms=float(out["side_rms"]),
-        correlation=float(out["stereo_corr_centered"]),
-        width=StereoWidthBands(
-            low=float(widths[0]), mid=float(widths[1]), high=float(widths[2])
-        ),
-    )
-
-    return TrackAnalysisResult(
-        audio=audio,
-        beat=beat_result,
-        downbeat=downbeat_result,
-        structure=structure_result,
-        loudness=loudness_result,
-        harmonic=harmonic_result,
-        features=features_result,
-        stereo=stereo_result,
-    )
+        return TrackAnalysisResult(
+            audio=audio,
+            beat=beat_result,
+            downbeat=downbeat_result,
+            structure=structure_result,
+            loudness=loudness_result,
+            harmonic=harmonic_result,
+            features=features_result,
+            stereo=stereo_result,
+        )
 
 
 def _pad_track(audio: AudioInput, n_bucket: int) -> tuple[np.ndarray, int]:
@@ -812,7 +791,8 @@ def _stage_payload_ms(audio: AudioInput, n_bucket: int, bits: int = 8) -> tuple[
             parts.append(full)
     widths = None
     if audio.stereo_samples is not None:
-        widths = _host_stereo_widths(channels, audio.sample_rate)
+        with span("host_stereo"):
+            widths = _host_stereo_widths(channels, audio.sample_rate)
     return tuple(parts), (stats, widths), n
 
 
@@ -1031,8 +1011,9 @@ def _fetch(outs: tuple, events) -> "list[np.ndarray]":
     outputs as numpy arrays."""
 
     if events is not None:
-        events[2].synchronize()
-        _count_stage("graph", events[0].elapsed_time(events[1]) / 1e3)
+        with span("readback_wait"):
+            events[2].synchronize()
+        count_seconds("graph", events[0].elapsed_time(events[1]) / 1e3)
     return [o.numpy() for o in outs]
 
 
@@ -1089,18 +1070,26 @@ def analyse_track_fused(
         transport = "ms"
     _check_transport(transport)
     dev = resolve_device(device)
-    audio = source if isinstance(source, AudioInput) else coerce_audio(source)
+    if isinstance(source, AudioInput):
+        audio = source
+    else:
+        with span("decode"):
+            audio = coerce_audio(source)
     n = len(audio.samples)
     n_bucket = _bucket_for(transport)(n) if bucket else n
     if (transport in _MS_BITS or transport == "int8") and n_bucket % _I8_BLOCK:
         # Blockwise payloads reshape into _I8_BLOCK blocks; bucket=False
         # lengths round up (the padding is masked out).
         n_bucket = -(-n_bucket // _I8_BLOCK) * _I8_BLOCK
-    parts, host_exact, n_valid = _stage_track(audio, transport, n_bucket)
-    staged = _upload([p[None] for p in parts], [n_valid], dev)
-    outs, events = _dispatch(transport, staged, sr=audio.sample_rate)
-    fetched = _fetch(outs, events)
-    return result_from_graph_outputs(audio, _lane_outputs(fetched, 0, host_exact), seed=seed)
+    with span("quantise"):
+        parts, host_exact, n_valid = _stage_track(audio, transport, n_bucket)
+    with span("upload"):
+        staged = _upload([p[None] for p in parts], [n_valid], dev)
+    with span("dispatch"):
+        outs, events = _dispatch(transport, staged, sr=audio.sample_rate)
+    with span("finish"):
+        fetched = _fetch(outs, events)
+        return result_from_graph_outputs(audio, _lane_outputs(fetched, 0, host_exact), seed=seed)
 
 
 def _kernel_sources() -> "tuple[str, ...]":
@@ -1208,7 +1197,9 @@ def analyse_library(
     them all.
 
     ``stage_seconds()`` sums each stage's time over the sweep, its
-    threads and its devices.
+    threads and its devices; under ``torch.profiler`` every stage is
+    recorded as a span of this call (``profiling.spans()``), tagged with
+    its source's index (a chunk's indices for upload, dispatch and finish).
     """
 
     _check_transport(transport)
@@ -1251,28 +1242,26 @@ def analyse_library(
     def _load(item):
         idx, src = item
         try:
-            t0 = time.perf_counter()
-            audio = coerce_audio(src, target_sr=target_sr)
-            t1 = time.perf_counter()
+            with span("decode", track=idx, parent=call):
+                audio = coerce_audio(src, target_sr=target_sr)
             n_bucket = bucket_for(len(audio.samples))
-            payload, host_exact, nv = _stage_track(audio, transport, n_bucket)
-            _count_stage("decode", t1 - t0)
-            _count_stage("quantise", time.perf_counter() - t1)
+            with span("quantise", track=idx, parent=call):
+                payload, host_exact, nv = _stage_track(audio, transport, n_bucket)
         except Exception as exc:
             if on_error == "raise":
                 raise
-            return idx, src, exc, None, None, None, None
-        return idx, src, audio, n_bucket, payload, nv, host_exact
+            return idx, src, exc, None, None, None, None, None
+        return idx, src, audio, n_bucket, payload, nv, host_exact, stamp()
 
     def _stage(chunk, dev):
         """Upload one chunk's stacked payload parts to ``dev`` (on the
         upload pool)."""
 
-        t0 = time.perf_counter()
-        parts = [np.stack([item[3][p] for item in chunk]) for p in range(len(chunk[0][3]))]
-        staged = _upload(parts, [item[4] for item in chunk], dev)
-        _count_stage("upload", time.perf_counter() - t0)
-        return staged
+        for item in chunk:
+            close_wait("queue_wait", item[6], track=item[0], parent=call)
+        with span("upload", track=tuple(item[0] for item in chunk), parent=call):
+            parts = [np.stack([item[3][p] for item in chunk]) for p in range(len(chunk[0][3]))]
+            return _upload(parts, [item[4] for item in chunk], dev)
 
     n_done = 0
     total = len(todo)
@@ -1293,23 +1282,23 @@ def analyse_library(
                 progress_callback(str(src), n_done, total)
 
     def _finish(chunk, outs, events, dev) -> None:
-        t0 = time.perf_counter()
-        fetched = _fetch(outs, events)
-        for k, (idx, src, audio, _payload, _nv, host_exact) in enumerate(chunk):
-            result = result_from_graph_outputs(
-                audio, _lane_outputs(fetched, k, host_exact), seed=seed
-            )
-            results[idx] = result
-            if output_dir is not None:
-                from ..rendering import outputs as outputs_module
-
-                name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
-                with render_lock, _on(dev):
-                    outputs_module.render_all(
-                        result, Path(output_dir) / name, report_request=report_request, device=dev
+        with span("finish", track=tuple(item[0] for item in chunk), parent=call):
+            fetched = _fetch(outs, events)
+            for k, (idx, src, audio, _payload, _nv, host_exact, _ready) in enumerate(chunk):
+                with on_track(idx):
+                    result = result_from_graph_outputs(
+                        audio, _lane_outputs(fetched, k, host_exact), seed=seed
                     )
-            _record(src, {"bpm": result.beat.bpm, "key": result.harmonic.primary_key.key})
-        _count_stage("finish", time.perf_counter() - t0)
+                    results[idx] = result
+                    if output_dir is not None:
+                        from ..rendering import outputs as outputs_module
+
+                        name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
+                        with render_lock, _on(dev), span("render"):
+                            outputs_module.render_all(
+                                result, Path(output_dir) / name, report_request=report_request, device=dev
+                            )
+                _record(src, {"bpm": result.beat.bpm, "key": result.harmonic.primary_key.key})
 
     def _warm() -> None:
         if prewarm:
@@ -1325,10 +1314,8 @@ def analyse_library(
 
         staged = staged_future.result()
         warm.result()  # a kernel that does not build raises here
-        with _on(dev):
-            t0 = time.perf_counter()
+        with _on(dev), span("dispatch", track=tuple(item[0] for item in chunk), parent=call):
             outs, events = _dispatch(transport, staged, sr=target_sr)
-            _count_stage("dispatch", time.perf_counter() - t0)
         return finish_pool.submit(_finish, chunk, outs, events, dev)
 
     prefetch = prefetch_tracks or max(2 * len(devices) * n_lane, 4)
@@ -1367,13 +1354,13 @@ def analyse_library(
             decode_q.append(decode_pool.submit(_load, item))
 
     def _absorb(loaded) -> None:
-        idx, src, audio, n_bucket, payload, nv, host_exact = loaded
+        idx, src, audio, n_bucket, payload, nv, host_exact, ready = loaded
         if isinstance(audio, Exception):
             results[idx] = TrackFailure(source=str(src), error=str(audio))
             _record(src, {"error": str(audio)})
             return
         key = (n_bucket, len(payload))
-        buckets.setdefault(key, []).append((idx, src, audio, payload, nv, host_exact))
+        buckets.setdefault(key, []).append((idx, src, audio, payload, nv, host_exact, ready))
 
     def _deal(chunk) -> None:
         """Give ``chunk`` to the next worker in turn; wait while that
@@ -1401,23 +1388,25 @@ def analyse_library(
                 buckets[key] = items
                 _deal(chunk)
 
-    try:
-        _pump_decodes()
-        while decode_q:
-            _absorb(decode_q.popleft().result())
+    # The call span: every task of the sweep takes it as its parent.
+    with span("call") as call:
+        try:
             _pump_decodes()
-            if not (decode_q and decode_q[0].done()):
-                # Every finished decode is in: form chunks (the trailing
-                # partial ones once nothing is left to decode).
-                _form_chunks(flush=not decode_q)
-        for queue in in_flight:
-            while queue:
-                queue.popleft().result().result()
-    finally:
-        # On an error, work not yet started is dropped; what runs ends
-        # on its own (a worker waiting on a dropped upload gets
-        # CancelledError), so nothing is left running.
-        for pool in (decode_pool, upload_pool, *workers, finish_pool, warm_pool):
-            pool.shutdown(wait=True, cancel_futures=True)
+            while decode_q:
+                _absorb(decode_q.popleft().result())
+                _pump_decodes()
+                if not (decode_q and decode_q[0].done()):
+                    # Every finished decode is in: form chunks (the trailing
+                    # partial ones once nothing is left to decode).
+                    _form_chunks(flush=not decode_q)
+            for queue in in_flight:
+                while queue:
+                    queue.popleft().result().result()
+        finally:
+            # On an error, work not yet started is dropped; what runs ends
+            # on its own (a worker waiting on a dropped upload gets
+            # CancelledError), so nothing is left running.
+            for pool in (decode_pool, upload_pool, *workers, finish_pool, warm_pool):
+                pool.shutdown(wait=True, cancel_futures=True)
 
     return results

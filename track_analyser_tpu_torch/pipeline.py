@@ -22,6 +22,7 @@ from . import features, harmony, stereo, tempo
 from .analysis import beats, loudness, stems, structure
 from .config import DEFAULT_SEED
 from .device import resolve_device
+from .profiling import span
 from .utils import AudioInput, coerce_audio
 
 __all__ = ["TrackAnalysisResult", "analyse_track"]
@@ -88,36 +89,47 @@ def analyse_track(
     ``fused=False`` runs the per-module graphs (more dispatches, the
     fused path's results within float rounding); ``transport`` applies
     to the fused path only.
+
+    The call is one "call" span, and each host layer inside it a span of
+    its own (``profiling.span``): counted in ``stage_seconds()`` always,
+    recorded with the track's index 0 under ``torch.profiler``.
     """
 
-    dev = resolve_device(device)
-    audio = source if isinstance(source, AudioInput) else coerce_audio(source)
-    if progress_callback:
-        progress_callback("audio")
-
-    if fused:
-        from .parallel import batch  # local import to avoid a circular dep
-
-        result = batch.analyse_track_fused(audio, seed=seed, transport=transport, device=dev)
+    with span("call", track=0):
+        dev = resolve_device(device)
+        if isinstance(source, AudioInput):
+            audio = source
+        else:
+            with span("decode"):
+                audio = coerce_audio(source)
         if progress_callback:
-            for stage in ("beats", "structure", "loudness", "harmonic", "features", "stereo"):
-                progress_callback(stage)
-    else:
-        result = _analyse_per_module(audio, seed=seed, device=dev, progress_callback=progress_callback)
+            progress_callback("audio")
 
-    if use_stems:
-        result.stems = stems.separate_stems(audio.path, output_dir, seed=seed, device=dev)
-        if progress_callback:
-            progress_callback("stems")
+        if fused:
+            from .parallel import batch  # local import to avoid a circular dep
 
-    if output_dir is not None:
-        from .rendering import outputs  # local import to avoid a circular dep
+            result = batch.analyse_track_fused(audio, seed=seed, transport=transport, device=dev)
+            if progress_callback:
+                for stage in ("beats", "structure", "loudness", "harmonic", "features", "stereo"):
+                    progress_callback(stage)
+        else:
+            result = _analyse_per_module(audio, seed=seed, device=dev, progress_callback=progress_callback)
 
-        outputs.render_all(result, Path(output_dir), device=dev)
-        if progress_callback:
-            progress_callback("render")
+        if use_stems:
+            with span("stems"):
+                result.stems = stems.separate_stems(audio.path, output_dir, seed=seed, device=dev)
+            if progress_callback:
+                progress_callback("stems")
 
-    return result
+        if output_dir is not None:
+            from .rendering import outputs  # local import to avoid a circular dep
+
+            with span("render"):
+                outputs.render_all(result, Path(output_dir), device=dev)
+            if progress_callback:
+                progress_callback("render")
+
+        return result
 
 
 def _analyse_per_module(

@@ -1,16 +1,18 @@
-"""Where a warm single-track analysis spends its time on a CUDA card.
+"""Where a warm analysis spends its time on a CUDA card, by the program's
+own spans.
 
     python -m track_analyser_tpu_torch.profile_track [--seconds 181] [--reps 5] [--batch 1]
 
-Synthesises bench.py's club-track recipe (118 BPM, seed 0) in memory,
-warms the path up, then times each layer of the float32 fused path with
-the host clock around synchronised steps (median of ``--reps``): pad,
-upload, fused graph (device), readback, unpack, host finishers. The
-graph runs on ``--batch`` copies of the track as one batch (the sweep's
-``device_batch``); pad, upload and readback move the whole batch, and the
-finishers run on one lane. One more fused-graph run under
-``torch.profiler`` gives the device time by kernel and the device's busy
-share of that run, and the peak device memory of the whole script.
+Synthesises bench.py's club-track recipe (118 BPM, seed 0) in memory and
+runs the default path, ``analyse_library([audio] * batch,
+device_batch=batch)`` (one chunk of ``--batch`` lanes: decode, staging,
+upload, the fused graph, readback, the host finishers), once to warm it
+up, then ``--reps`` times under ``torch.profiler``, which switches the
+program's span recording on. Prints the span table: per span name, its
+self time over the call (each span's wall minus what its children cover,
+summed), median, min and max over the reps; then each run's device busy
+share (the union of kernel, copy and memset intervals over the call's
+wall), the last run's device time by kernel and the peak device memory.
 With ``TA_PALLAS_STFT=1`` in the environment the graph's STFT is the fused
 kernel, as everywhere in the port; the first line says which it was.
 Prints the card's name and power limit beside the numbers. Needs a CUDA
@@ -23,16 +25,16 @@ import argparse
 import statistics
 import subprocess
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
 
+from . import profiling
 from .device import resolve_device
 from .ops import fused_stft
 from .parallel import batch
-from .substrate import bucket_length, unpack_outputs
 from .utils import AudioInput
-
 
 def _make_track(seconds: float, sr: int = 44_100, bpm: float = 118.0, seed: int = 0) -> np.ndarray:
     """bench.py's _make_track recipe: kick grid + bass + chords + hats."""
@@ -62,49 +64,59 @@ def _make_track(seconds: float, sr: int = 44_100, bpm: float = 118.0, seed: int 
     return (np.stack([left, right]) / peak * 0.9).astype(np.float32)
 
 
-def _padded_batch(audio: AudioInput, lanes: int) -> tuple[np.ndarray, np.ndarray]:
-    """(lanes, 2, bucket) float32 copies of the track and their n_valid."""
+def _union_ns(intervals) -> int:
+    total, reach = 0, None
+    for s, e in sorted(intervals):
+        if reach is None or s > reach:
+            total += e - s
+            reach = e
+        elif e > reach:
+            total += e - reach
+            reach = e
+    return total
 
-    stereo_np, n_valid = batch._pad_track(audio, bucket_length(len(audio.samples)))
-    return np.repeat(stereo_np[None], lanes, axis=0), np.full(lanes, n_valid, dtype=np.int64)
+
+def self_times_ms(records) -> dict:
+    """Self time (ms) per span name, summed over ``records``: each span's
+    wall minus the union of its children's intervals inside it."""
+
+    children = defaultdict(list)
+    for r in records:
+        if r.parent_id is not None:
+            children[r.parent_id].append(r)
+    out: dict = defaultdict(float)
+    for r in records:
+        inner = [(max(c.start_ns, r.start_ns), min(c.end_ns, r.end_ns)) for c in children[r.span_id]]
+        covered = _union_ns((s, e) for s, e in inner if e > s)
+        out[r.name] += (r.end_ns - r.start_ns - covered) / 1e6
+    return dict(out)
 
 
-def _stages(audio: AudioInput, dev: torch.device, lanes: int) -> dict:
-    """One warm pass of the float32 fused path on ``lanes`` copies of the
-    track, timed layer by layer (ms)."""
+def _profiled_call(audios: list, dev: torch.device, lanes: int):
+    """One call under the profiler: (span records, wall ns, device
+    intervals (ns), device ns by kernel name)."""
 
-    ms = {}
-    t0 = time.perf_counter()
-    stereo_np, n_valid = _padded_batch(audio, lanes)
-    ms["pad"] = time.perf_counter() - t0
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        stereo = torch.from_numpy(stereo_np).to(dev)
-        valid = torch.from_numpy(n_valid).to(dev)
+    profiling.reset_spans()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.time_ns()
+        batch.analyse_library(audios, device=dev, device_batch=lanes)
         torch.cuda.synchronize()
-        ms["upload"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        outs = batch._core_graph(stereo, valid, sr=audio.sample_rate)
-        torch.cuda.synchronize()
-        ms["fused_graph"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        fetched = [o.cpu().numpy() for o in outs]
-        ms["readback"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = unpack_outputs(*(f[0] for f in fetched[:4]))
-    out["net_prob"] = fetched[4][0] if len(fetched) > 4 else None
-    ms["unpack"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batch.result_from_graph_outputs(audio, out)
-    ms["finishers"] = time.perf_counter() - t0
-    return {k: v * 1e3 for k, v in ms.items()}
+        t1 = time.time_ns()
+    records = [r for r in profiling.spans() if r.start_ns >= t0 and r.end_ns <= t1]
+    device, by_name = [], defaultdict(int)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            device.append((max(e.start_ns(), t0), min(e.end_ns(), t1)))
+            by_name[e.name()] += e.duration_ns()
+    return records, t1 - t0, device, by_name
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=181.0)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=1, help="lanes per graph run")
+    ap.add_argument("--batch", type=int, default=1, help="lanes of the one chunk (device_batch)")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -115,44 +127,26 @@ def main() -> None:
     route = "the fused kernel (TA_PALLAS_STFT=1)" if fused_stft.switched_on() else "cuFFT (ops/stft.magnitude)"
     print(f"the graph's [mid, side] STFT goes through {route}")
     x = _make_track(args.seconds)
-    audio = AudioInput(samples=x.mean(axis=0), sample_rate=44_100, stereo_samples=x)
-    _stages(audio, dev, args.batch)  # warm-up: cuFFT plans, handles, allocator
-    runs = [_stages(audio, dev, args.batch) for _ in range(args.reps)]
-    print(f"layer times, warm, batch {args.batch}, median of {args.reps} (ms) -- {card}")
-    total = 0.0
-    for key in runs[0]:
-        values = sorted(r[key] for r in runs)
-        total += statistics.median(values)
-        print(f"  {key:12s} median {statistics.median(values):9.3f}  min {values[0]:9.3f}  max {values[-1]:9.3f}")
-    print(f"  {'sum':12s} {total:9.3f}")
+    audios = [AudioInput(samples=x.mean(axis=0), sample_rate=44_100, stereo_samples=x)] * args.batch
+    batch.analyse_library(audios, device=dev, device_batch=args.batch)  # warm-up
+    runs = [_profiled_call(audios, dev, args.batch) for _ in range(args.reps)]
 
-    stereo_np, n_valid = _padded_batch(audio, args.batch)
-    with torch.inference_mode():
-        stereo = torch.from_numpy(stereo_np).to(dev)
-        valid = torch.from_numpy(n_valid).to(dev)
-        torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            batch._core_graph(stereo, valid, sr=audio.sample_rate)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    print(
-        f"fused graph (batch {args.batch}) under the profiler: wall {wall_ms:.3f} ms, {len(kernels)} device "
-        f"kernels/copies, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall) -- {card}"
-    )
-    by_name: dict = {}
-    for e in kernels:
-        total_us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total_us + e.device_time_total, count + 1)
-    print("device time by kernel (top 25):")
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
-        print(f"  {us / 1e3:9.3f} ms  x{count:<4d} {name[:110]}")
+    tables = [self_times_ms(records) for records, *_ in runs]
+    print(f"span self times, warm, batch {args.batch}, {args.seconds:g} s, over {args.reps} runs (ms) -- {card}")
+    names = sorted({n for t in tables for n in t}, key=lambda n: -statistics.median(t.get(n, 0.0) for t in tables))
+    for name in names:
+        values = sorted(t.get(name, 0.0) for t in tables)
+        print(f"  {name:18s} median {statistics.median(values):9.3f}  min {values[0]:9.3f}  max {values[-1]:9.3f}")
+    walls = [wall / 1e6 for _r, wall, _d, _b in runs]
+    print(f"  {'call wall':18s} median {statistics.median(walls):9.3f}  min {min(walls):9.3f}  max {max(walls):9.3f}")
+    for k, (_records, wall, device, _by_name) in enumerate(runs):
+        busy = _union_ns(device)
+        print(f"run {k}: wall {wall / 1e6:.3f} ms, {len(device)} device kernels/copies, device busy "
+              f"{busy / 1e6:.3f} ms ({100 * busy / wall:.1f}% of wall, union of intervals) -- {card}")
+    by_name = runs[-1][3]
+    print("device time by kernel, last run (top 25):")
+    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"  {ns / 1e6:9.3f} ms  {name[:110]}")
     print(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB -- {card}")
 
 

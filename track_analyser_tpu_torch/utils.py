@@ -17,6 +17,7 @@ import numpy as np
 from .config import DEFAULT_SEED, DEFAULT_SR
 from .io.codecs import decode_file
 from .ops.resample import resample_poly_host
+from .profiling import span
 
 __all__ = [
     "AudioInput",
@@ -117,11 +118,12 @@ def coerce_audio(
 
     mono_samples, stereo, sr, path = _unpack_source(source, mono)
     if sr is not None and sr != target_sr:
-        if stereo is not None:
-            stereo = _resample(stereo, sr, target_sr)
-            mono_samples = stereo.mean(axis=0) if mono else _resample(mono_samples, sr, target_sr)
-        else:
-            mono_samples = _resample(mono_samples, sr, target_sr)
+        with span("resample"):
+            if stereo is not None:
+                stereo = _resample(stereo, sr, target_sr)
+                mono_samples = stereo.mean(axis=0) if mono else _resample(mono_samples, sr, target_sr)
+            else:
+                mono_samples = _resample(mono_samples, sr, target_sr)
     return AudioInput(
         samples=np.asarray(mono_samples, dtype=np.float32),
         sample_rate=target_sr,
