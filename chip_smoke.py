@@ -1464,8 +1464,14 @@ def launch_shapes(module, symbol: str, shape_args: slice):
     """Record, for every launch of ``module``'s kernel inside the block,
     the arguments ``shape_args`` of its C entry point ``symbol`` (the
     wrapper looks its library up through ``module._library`` at each
-    call). The launch counts are untouched."""
+    call). The launch counts are untouched. A replayed CUDA graph launches
+    its kernels without the wrapper, so the block starts with no captured
+    graph: each shape's first call runs the wrapper (eagerly, then in its
+    capture)."""
 
+    from track_analyser_tpu_torch.parallel import batch
+
+    batch.clear_graphs()
     real = module._library
     seen = []
 
@@ -1771,8 +1777,9 @@ def mesh_phase(card: str, launches: "Launches", path_launches: dict, sources: "l
     STFT routes at ``device_batch`` 1 and SWEEP_BATCH: outcomes in source
     order, launches equal to chunks, both workers used, lanes against
     batch-1 ``analyse_track`` (bit for bit at batch 1), the manifest's
-    resume; a kernel failure injected into worker 1 propagates and leaves
-    no thread running; the 40-source library timed with one worker and
+    resume; a kernel failure injected into worker 1 (eager), a replay
+    that fails in worker 1 and a capture that fails each propagate and
+    leave no thread running; the 40-source library timed with one worker and
     with two; with more than one card, the default mesh over all of
     them."""
 
@@ -1853,7 +1860,9 @@ def mesh_phase(card: str, launches: "Launches", path_launches: dict, sources: "l
             print(f"default mesh over several cards: not run ({n_cards} visible card)")
 
         # A kernel failure in worker 1: its second chunk's first median
-        # launch reports a CUDA error, as a failed launch would.
+        # launch reports a CUDA error, as a failed launch would. The sweep
+        # runs eagerly (TRACK_ANALYSER_TPU_DEBUG_NANS=1), since a replayed
+        # graph launches its medians without the wrapper.
         real_library = median._library
         calls: dict = {}
 
@@ -1869,6 +1878,7 @@ def mesh_phase(card: str, launches: "Launches", path_launches: dict, sources: "l
                 return self.lib.median31_launch(*args)
 
         median._library = lambda: FailingLaunch(real_library())
+        os.environ["TRACK_ANALYSER_TPU_DEBUG_NANS"] = "1"
         before = set(threading.enumerate())
         raised = None
         try:
@@ -1877,11 +1887,66 @@ def mesh_phase(card: str, launches: "Launches", path_launches: dict, sources: "l
             raised = exc
         finally:
             median._library = real_library
+            del os.environ["TRACK_ANALYSER_TPU_DEBUG_NANS"]
         torch.cuda.synchronize()
         check(raised is not None and "CUDA error 700" in str(raised), f"the failure injected into worker 1 did not propagate: {raised!r}")
         left = [t.name for t in set(threading.enumerate()) - before if t.is_alive()]
         check(not left, f"threads left running after the failed sweep: {left}")
         print(f"failure injected into worker 1's second chunk: analyse_library raised {raised!r}; no thread left running")
+
+        def failing_sweep(label: str, expected: str) -> None:
+            """A sweep on the main path, whose injected failure must come
+            out of analyse_library and leave no thread running."""
+
+            before = set(threading.enumerate())
+            raised = None
+            try:
+                batch.analyse_library(sources, device="cuda", mesh=two, transport="ms", device_batch=1)
+            except RuntimeError as exc:
+                raised = exc
+            torch.cuda.synchronize()
+            check(raised is not None and expected in str(raised), f"the failure injected into {label} did not propagate: {raised!r}")
+            left = [t.name for t in set(threading.enumerate()) - before if t.is_alive()]
+            check(not left, f"threads left running after the failed sweep: {left}")
+            print(f"failure injected into {label}: analyse_library raised {raised!r}; no thread left running")
+
+        # A replay that fails in worker 1: its second replay raises, as a
+        # failed graph launch would. A clean sweep first captures every key,
+        # so that each of the sweep's chunks replays.
+        batch.analyse_library(sources, device="cuda", mesh=two, transport="ms", device_batch=1)
+        real_replay = torch.cuda.CUDAGraph.replay
+        replays: dict = {}
+
+        def failing_replay(graph):
+            name = threading.current_thread().name
+            replays[name] = replays.get(name, 0) + 1
+            if name.startswith(f"{WORKER}1") and replays[name] == 2:
+                raise RuntimeError("CUDA error: an illegal memory access was encountered (injected into a replay)")
+            return real_replay(graph)
+
+        torch.cuda.CUDAGraph.replay = failing_replay
+        try:
+            failing_sweep("worker 1's second replay", "injected into a replay")
+        finally:
+            torch.cuda.CUDAGraph.replay = real_replay
+
+        # A capture that fails: with no graph captured, the first chunk's
+        # capture meets a median launch that reports a CUDA error.
+        class FailingCapture:
+            def __init__(self, lib):
+                self.lib = lib
+
+            def median31_launch(self, *args):
+                if torch.cuda.is_current_stream_capturing():
+                    return 700  # cudaErrorIllegalAddress
+                return self.lib.median31_launch(*args)
+
+        batch.clear_graphs()
+        median._library = lambda: FailingCapture(real_library())
+        try:
+            failing_sweep("the first chunk's capture", "CUDA error 700")
+        finally:
+            median._library = real_library
 
         # Throughput: the 40-source library with one worker and with two on
         # the one card, alternating, MESH_RUNS timed runs each (phase 7

@@ -16,17 +16,30 @@ hands it its outputs, and with the variable set it raises
 ``FloatingPointError`` at the first NaN, naming the graph and the
 output. The variable is read on each call; unset, the check costs one
 environment lookup and no device sync.
+
+``device_constant`` keeps the graphs' numpy constants (filterbanks,
+windows, kernels) on each device once, so that no call copies them from
+pageable host memory again, and a captured CUDA graph reads memory that
+stays put.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from typing import Callable, Hashable
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_nans", "DEBUG_NANS"]
+__all__ = ["resolve_device", "check_nans", "device_constant", "DEBUG_NANS"]
 
 DEBUG_NANS = "TRACK_ANALYSER_TPU_DEBUG_NANS"
+
+# (builder, args, kwargs, device, dtype) -> the tensor, or tuple of
+# tensors; never evicted, since a captured graph may read it.
+_constants: dict = {}
+_constants_lock = threading.Lock()
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -66,3 +79,34 @@ def check_nans(graph: str, outputs):
         if isinstance(value, torch.Tensor) and value.is_floating_point() and bool(torch.isnan(value).any()):
             raise FloatingPointError(f"{DEBUG_NANS}=1: NaN in {name} of the device graph {graph}")
     return outputs
+
+
+def device_constant(
+    builder: "Callable[..., np.ndarray | tuple]",
+    *args: Hashable,
+    device: "str | torch.device",
+    dtype: "torch.dtype | None" = None,
+    **kwargs: Hashable,
+) -> "torch.Tensor | tuple":
+    """``builder(*args, **kwargs)``, a numpy array or a tuple of them, as
+    tensors of ``dtype`` on ``device``: built and copied once per (builder,
+    arguments, device, dtype) and kept for the life of the process.
+
+    The tensors are normal ones even when asked for under
+    ``torch.inference_mode``, so that autograd may save them, and on a card
+    their copies have finished when they are returned."""
+
+    dev = torch.device(device)
+    key = (builder, args, tuple(sorted(kwargs.items())), str(dev), dtype)
+    with _constants_lock:
+        hit = _constants.get(key)
+        if hit is None:
+            built = builder(*args, **kwargs)
+            with torch.inference_mode(False):
+                # Synchronous copies: done before any stream reads them.
+                if isinstance(built, tuple):
+                    hit = tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in built)
+                else:
+                    hit = torch.as_tensor(built, dtype=dtype, device=dev)
+            _constants[key] = hit
+        return hit

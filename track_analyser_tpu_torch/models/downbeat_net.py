@@ -259,13 +259,13 @@ def activation_graph(
     (``n_valid`` (B,)), the TCN over the padded frame axis, softmax
     column 2; padded frames are zeroed in the output."""
 
+    from ..device import device_constant
     from ..ops.mel import mel_filterbank, melspectrogram_from_power, power_to_db
     from ..ops.stft import magnitude, n_frames
 
     power = magnitude(y, 2048, _HOP, power=2.0)
-    mel_db = power_to_db(
-        melspectrogram_from_power(power, mel_filterbank(sr, 2048, 128)), dims=(-2, -1)
-    )
+    fb = device_constant(mel_filterbank, sr, 2048, 128, device=y.device)
+    mel_db = power_to_db(melspectrogram_from_power(power, fb), dims=(-2, -1))
     feats = mel_db.transpose(-1, -2)  # (B, T, 128)
     total = n_frames(y.shape[-1], _HOP)
     n_valid = torch.as_tensor(n_valid, device=y.device)

@@ -26,6 +26,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import device_constant
+
 __all__ = [
     "chroma_stft_filterbank",
     "cq_chroma_filterbank",
@@ -303,15 +305,17 @@ def cq_chroma_multires(
     from .resample import decimate_fir
     from .stft import magnitude
 
-    fb_low, fb_high = multires_cq_filterbanks(sr, n_fft, n_fft_low, decim, low_octaves=low_octaves)
     dev = y.device
+    fb_low, fb_high = device_constant(
+        multires_cq_filterbanks, sr, n_fft, n_fft_low, decim, low_octaves=low_octaves, device=dev
+    )
     mag_high = magnitude(y, n_fft, hop, power=1.0)
     y_low = decimate_fir(y, decim, sr=sr, keep_hz=keep_hz)
     mag_low = magnitude(y_low, n_fft_low, hop // decim, power=1.0)
     t = min(mag_high.shape[-1], mag_low.shape[-1])
     raw = (
-        torch.as_tensor(fb_high, device=dev) @ mag_high[..., :t]
-        + torch.as_tensor(fb_low, device=dev) @ mag_low[..., :t]
+        fb_high @ mag_high[..., :t]
+        + fb_low @ mag_low[..., :t]
     )
     return normalize_inf(raw, axis=-2)
 
@@ -347,7 +351,9 @@ def cq_chroma_tribank(
     while decim > 1 and (sr / decim < 2.625 * keep_hz or hop % decim):
         decim //= 2
 
-    fb_low, fb_mid, fb_fam = multibank_cq_filterbanks(
+    dev = y.device
+    fb_low, fb_mid, fb_fam = device_constant(
+        multibank_cq_filterbanks,
         sr,
         (
             (decim, low_n_fft, 0, low_octaves),
@@ -355,25 +361,26 @@ def cq_chroma_tribank(
             (1, family_n_fft, family_octave, n_octaves),
         ),
         n_octaves=n_octaves,
+        device=dev,
     )
-    dev = y.device
     y_low = decimate_fir(y, decim, sr=sr, keep_hz=keep_hz)
     hop_low = hop // decim
     mag_low = magnitude(y_low, low_n_fft, hop_low, power=1.0)
     mag_mid = magnitude(y_low, mid_n_fft, hop_low, power=1.0)
-    raw_fam = (torch.as_tensor(fb_fam, device=dev) @ family_mag)[..., :: hop // family_hop]
+    raw_fam = (fb_fam @ family_mag)[..., :: hop // family_hop]
     t = min(mag_low.shape[-1], mag_mid.shape[-1], raw_fam.shape[-1])
     raw = (
-        torch.as_tensor(fb_low, device=dev) @ mag_low[..., :t]
-        + torch.as_tensor(fb_mid, device=dev) @ mag_mid[..., :t]
+        fb_low @ mag_low[..., :t]
+        + fb_mid @ mag_mid[..., :t]
         + raw_fam[..., :t]
     )
     return normalize_inf(raw, axis=-2)
 
 
-def chroma_from_power(power_spec: torch.Tensor, fb: np.ndarray) -> torch.Tensor:
+def chroma_from_power(power_spec: torch.Tensor, fb: "np.ndarray | torch.Tensor") -> torch.Tensor:
     """Project a power spectrogram (..., bins, frames) through a chroma
-    filterbank and inf-normalise each frame (librosa chroma convention)."""
+    filterbank and inf-normalise each frame (librosa chroma convention); a
+    filterbank tensor on the spectrogram's device is used as it is."""
 
     raw = torch.as_tensor(fb, device=power_spec.device) @ power_spec
     return normalize_inf(raw, axis=-2)

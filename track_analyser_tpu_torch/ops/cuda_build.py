@@ -8,10 +8,16 @@ runs at import time; a host without ``nvcc`` raises when a kernel is
 first needed. ``build_library`` is the same scheme for any compiler: the
 native host library (``native/build.py``) builds through it with the
 system C++ compiler.
+
+``count_launch`` is how a kernel's wrapper counts its launches (the
+functions' ``launches`` attributes). Inside ``held_launches`` on a thread
+the counts are held instead of added: a CUDA graph capture launches
+nothing, and its replays add what it held (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,11 +26,11 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 __all__ = [
     "CSRC", "SOURCES", "nvcc", "build", "build_text", "build_all", "load",
-    "build_library",
+    "build_library", "count_launch", "held_launches", "add_launches",
 ]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -36,6 +42,8 @@ _NVCC_FLAGS = (
 SOURCES = ("median31.cu", "stft_mag.cu")
 _loaded: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_held = threading.local()
 
 
 def nvcc() -> str:
@@ -149,3 +157,37 @@ def load(source: str, symbol: str, argtypes: list) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _loaded[source] = lib
     return lib
+
+
+def add_launches(counts: "Sequence[tuple[object, tuple[str, ...]]]") -> None:
+    """Add one to each named counter attribute of each (function, names)."""
+
+    with _count_lock:
+        for fn, names in counts:
+            for name in names:
+                setattr(fn, name, getattr(fn, name) + 1)
+
+
+def count_launch(fn: object, *names: str) -> None:
+    """Count one launch of ``fn``'s kernel: one more in each of its counter
+    attributes ``names``, or, inside ``held_launches`` on this thread, held
+    for the caller."""
+
+    held = getattr(_held, "counts", None)
+    if held is not None:
+        held.append((fn, names))
+    else:
+        add_launches([(fn, names)])
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[list]:
+    """Within the block, this thread's ``count_launch`` calls are held, not
+    added; yields the list they go into, as (function, names) pairs."""
+
+    counts: list = []
+    _held.counts = counts
+    try:
+        yield counts
+    finally:
+        _held.counts = None

@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import device_constant
+
 __all__ = [
     "reflect_index",
     "gaussian_kernel",
@@ -65,7 +67,7 @@ def gaussian_filter1d(x: torch.Tensor, sigma: float, axis: int = -1) -> torch.Te
             y = y + float(kernel_np[j]) * xp[..., j : j + n]
     else:
         n_fft = int(2 ** np.ceil(np.log2(xp.shape[-1] + ksize)))
-        kernel = torch.as_tensor(kernel_np, device=x.device)
+        kernel = device_constant(gaussian_kernel, float(sigma), device=x.device)
         spec = torch.fft.rfft(xp, n=n_fft, dim=-1) * torch.fft.rfft(kernel, n=n_fft)
         # FFT computes convolution; for the symmetric kernel correlation
         # equals convolution shifted by ksize-1 relative to the padded

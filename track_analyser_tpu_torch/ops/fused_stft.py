@@ -32,11 +32,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import numpy as np
 import torch
 
+from ..device import device_constant
 from . import cuda_build
 from .stft import frame_signal, hann_window
 
@@ -53,19 +53,27 @@ __all__ = [
 KERNEL_N_FFT = 2048  # the one (n_fft, hop) pair the CUDA kernel is written for
 KERNEL_HOP = 512
 _BIN_TILE = 64  # the plain version's basis is padded to a multiple of it
-_basis_cache: dict = {}
-_tables_cache: dict = {}
-# Sweep workers call from several threads: each cache entry is built once
-# under this lock, and the launch count adds under it.
-_lock = threading.Lock()
 
 
 def switched_on() -> bool:
     """Whether the fused graph takes this kernel for its [mid, side]
-    STFT: ``TA_PALLAS_STFT=1`` in the environment, read on every call (the
-    port runs eagerly, so a change applies to the next call)."""
+    STFT: ``TA_PALLAS_STFT=1`` in the environment, read on every call (a
+    captured graph is keyed on it, so a change applies to the next call)."""
 
     return os.environ.get("TA_PALLAS_STFT") == "1"
+
+
+def _basis_arrays(n_fft: int) -> "tuple[np.ndarray, np.ndarray]":
+    bins = 1 + n_fft // 2
+    bins_p = -(-bins // _BIN_TILE) * _BIN_TILE
+    i = np.arange(n_fft, dtype=np.int64)[:, None]
+    j = np.arange(bins_p, dtype=np.int64)[None, :]
+    ang = (2.0 * np.pi / n_fft) * ((i * j) % n_fft).astype(np.float64)
+    win = hann_window(n_fft).astype(np.float64)[:, None]
+    valid = j < bins
+    wcos = np.where(valid, win * np.cos(ang), 0.0).astype(np.float32)
+    wsin = np.where(valid, win * np.sin(ang), 0.0).astype(np.float32)
+    return wcos, wsin
 
 
 def windowed_basis(n_fft: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,26 +81,10 @@ def windowed_basis(n_fft: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     Hann window folded into the rows, zero in the columns past the
     1 + n_fft//2 real bins (bins_p rounds up to the kernel's bin tile).
     The angle is 2*pi*((i*j) mod n_fft)/n_fft, as in the reference's
-    ``_windowed_basis``, evaluated in float64. Cached per (n_fft, device)."""
+    ``_windowed_basis``, evaluated in float64. Kept per (n_fft, device)
+    (``device_constant``)."""
 
-    dev = torch.device(device)
-    key = (n_fft, str(dev))
-    with _lock:
-        if key not in _basis_cache:
-            bins = 1 + n_fft // 2
-            bins_p = -(-bins // _BIN_TILE) * _BIN_TILE
-            i = np.arange(n_fft, dtype=np.int64)[:, None]
-            j = np.arange(bins_p, dtype=np.int64)[None, :]
-            ang = (2.0 * np.pi / n_fft) * ((i * j) % n_fft).astype(np.float64)
-            win = hann_window(n_fft).astype(np.float64)[:, None]
-            valid = j < bins
-            wcos = np.where(valid, win * np.cos(ang), 0.0).astype(np.float32)
-            wsin = np.where(valid, win * np.sin(ang), 0.0).astype(np.float32)
-            _basis_cache[key] = (
-                torch.from_numpy(wcos).to(dev).contiguous(),
-                torch.from_numpy(wsin).to(dev).contiguous(),
-            )
-        return _basis_cache[key]
+    return device_constant(_basis_arrays, n_fft, device=device)
 
 
 def fft_tables(n_fft: int, device) -> torch.Tensor:
@@ -108,25 +100,23 @@ def fft_tables(n_fft: int, device) -> torch.Tensor:
       untangle factors exp(-2*pi*i * k / 2048), k < 512 (bin 1024 - k
       shares bin k's factor, and bin 512's is -i).
 
-    Cached per (n_fft, device)."""
+    Kept per (n_fft, device) (``device_constant``)."""
 
     if n_fft != KERNEL_N_FFT:
         raise ValueError(f"the FFT kernel's tables exist for n_fft {KERNEL_N_FFT}, got {n_fft}")
-    dev = torch.device(device)
-    key = (n_fft, str(dev))
-    with _lock:
-        if key not in _tables_cache:
-            half = n_fft // 2
-            k1 = np.arange(32, dtype=np.int64)[:, None]
-            n2 = np.arange(32, dtype=np.int64)[None, :]
-            inner = (2.0 * np.pi / half) * ((k1 * n2) % half).astype(np.float64).reshape(-1)
-            untangle = (2.0 * np.pi / n_fft) * np.arange(half // 2, dtype=np.float64)
-            window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
-            flat = np.concatenate(
-                [0.5 * window, np.cos(inner), -np.sin(inner), np.cos(untangle), -np.sin(untangle)]
-            ).astype(np.float32)
-            _tables_cache[key] = torch.from_numpy(flat).to(dev).contiguous()
-        return _tables_cache[key]
+    return device_constant(_table_array, n_fft, device=device)
+
+
+def _table_array(n_fft: int) -> np.ndarray:
+    half = n_fft // 2
+    k1 = np.arange(32, dtype=np.int64)[:, None]
+    n2 = np.arange(32, dtype=np.int64)[None, :]
+    inner = (2.0 * np.pi / half) * ((k1 * n2) % half).astype(np.float64).reshape(-1)
+    untangle = (2.0 * np.pi / n_fft) * np.arange(half // 2, dtype=np.float64)
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
+    return np.concatenate(
+        [0.5 * window, np.cos(inner), -np.sin(inner), np.cos(untangle), -np.sin(untangle)]
+    ).astype(np.float32)
 
 
 # exp(-2*pi*i * t / 32) = _W32_COS[t] - i * _W32_SIN[t], t < 16: the literals of
@@ -322,8 +312,7 @@ def stft_magnitude(
         )
     if err != 0:
         raise RuntimeError(f"stft_magnitude kernel launch failed: CUDA error {err}")
-    with _lock:
-        stft_magnitude.launches += 1
+    cuda_build.count_launch(stft_magnitude, "launches")
     return out
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
 from .mel import amplitude_to_db
 from .stft import frame_signal
 
@@ -82,6 +83,12 @@ def k_weighting_fir(fs: int, n_taps: int = 16_384) -> np.ndarray:
     return h.astype(np.float32)
 
 
+def _k_weighting_spectrum(fs: int, n_fft: int) -> np.ndarray:
+    """``rfft`` of ``k_weighting_fir(fs)`` at ``n_fft``, complex64."""
+
+    return np.fft.rfft(k_weighting_fir(fs), n=n_fft).astype(np.complex64)
+
+
 def k_weighted(y: torch.Tensor, fs: int) -> torch.Tensor:
     """K-weighting by FFT convolution (same length as the input).
 
@@ -93,14 +100,14 @@ def k_weighted(y: torch.Tensor, fs: int) -> torch.Tensor:
     n = y.shape[-1]
     block = 32_768
     if n <= 4 * block:
-        h = torch.as_tensor(h_np, device=y.device)
+        h = device_constant(k_weighting_fir, fs, device=y.device)
         n_fft = int(2 ** np.ceil(np.log2(n + taps - 1)))
         spec = torch.fft.rfft(y, n=n_fft) * torch.fft.rfft(h, n=n_fft)
         return torch.fft.irfft(spec, n=n_fft)[..., :n]
 
     n_fft = 1 << int(np.ceil(np.log2(block + taps - 1)))
     nb = -(-n // block)
-    spec_h = torch.as_tensor(np.fft.rfft(h_np, n=n_fft).astype(np.complex64), device=y.device)
+    spec_h = device_constant(_k_weighting_spectrum, fs, n_fft, device=y.device)
     # Left-pad taps-1 (causal history); block i reads n_fft samples
     # starting at i*block of the padded signal.
     k = n_fft // block

@@ -39,7 +39,6 @@ and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import threading
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -60,8 +59,6 @@ RUN_TIME = 16
 RUN_FREQ = 16
 BLOCK_BEGIN = "// BEGIN GENERATED BLOCK"
 BLOCK_END = "// END GENERATED BLOCK"
-# Sweep workers launch from several threads: the counts add under it.
-_count_lock = threading.Lock()
 
 
 class TileNetwork(NamedTuple):
@@ -298,12 +295,7 @@ def median31(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"median31 kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        median31.launches += 1
-        if axis_time:
-            median31.launches_time += 1
-        else:
-            median31.launches_freq += 1
+    cuda_build.count_launch(median31, "launches", "launches_time" if axis_time else "launches_freq")
     return out
 
 

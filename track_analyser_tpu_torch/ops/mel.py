@@ -13,6 +13,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import device_constant
+
 __all__ = [
     "hz_to_mel",
     "mel_to_hz",
@@ -102,7 +104,7 @@ def power_to_db(
     for (B, bands, frames), so that each lane keeps its own floor."""
 
     log_spec = 10.0 * torch.log10(torch.clamp_min(s, amin))
-    ref_t = torch.tensor(max(amin, ref), dtype=s.dtype, device=s.device)
+    ref_t = torch.full((), max(amin, ref), dtype=s.dtype, device=s.device)
     log_spec = log_spec - 10.0 * torch.log10(ref_t)
     if top_db is not None:
         peak = log_spec.max() if dims is None else torch.amax(log_spec, dim=dims, keepdim=True)
@@ -121,9 +123,10 @@ def amplitude_to_db(
     return power_to_db(s**2, ref=ref**2, amin=amin**2, top_db=top_db, dims=dims)
 
 
-def melspectrogram_from_power(power_spec: torch.Tensor, fb: np.ndarray) -> torch.Tensor:
+def melspectrogram_from_power(power_spec: torch.Tensor, fb: "np.ndarray | torch.Tensor") -> torch.Tensor:
     """Project a power spectrogram (..., freq, time) through the mel
-    filterbank."""
+    filterbank (a tensor on the spectrogram's device, such as a
+    ``device_constant``, is used as it is)."""
 
     return torch.as_tensor(fb, device=power_spec.device) @ power_spec
 
@@ -131,5 +134,5 @@ def melspectrogram_from_power(power_spec: torch.Tensor, fb: np.ndarray) -> torch
 def mfcc_from_log_mel(log_mel: torch.Tensor, n_mfcc: int = 13) -> torch.Tensor:
     """MFCCs via an orthonormal DCT-II matmul; input (..., n_mels, time)."""
 
-    mat = torch.as_tensor(dct_matrix(n_mfcc, log_mel.shape[-2]), device=log_mel.device)
+    mat = device_constant(dct_matrix, n_mfcc, log_mel.shape[-2], device=log_mel.device)
     return mat @ log_mel

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
 from .mel import power_to_db
 from .stft import hann_window
 
@@ -66,7 +67,7 @@ def tempogram_prepadded(envp: torch.Tensor, win_length: int = 384) -> torch.Tens
     n = envp.shape[-1] - 2 * pad
     # frames[t, k] = envp[t + k]
     frames = envp.unfold(-1, win_length, 1)[..., :n, :]
-    w = torch.as_tensor(hann_window(win_length), dtype=envp.dtype, device=envp.device)
+    w = device_constant(hann_window, win_length, device=envp.device, dtype=envp.dtype)
     frames = frames * w
     n_pad = 1 << (2 * win_length - 2).bit_length()  # a power of two >= 2w - 1: linear
     spec = torch.fft.rfft(frames, n=n_pad, dim=-1)

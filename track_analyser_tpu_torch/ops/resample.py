@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from scipy import signal as _scipy_signal
 
+from ..device import device_constant
 from .stft import frame_signal
 
 __all__ = [
@@ -89,7 +90,7 @@ def decimate_fir(y: torch.Tensor, decim: int, *, sr: int, keep_hz: float) -> tor
     n = y.shape[-1]
     m_out = 1 + n // decim
     n_blocks = -(-m_out // lanes)
-    mat = torch.as_tensor(_decimation_toeplitz(sr, decim, keep_hz, lanes), device=y.device)
+    mat = device_constant(_decimation_toeplitz, sr, decim, keep_hz, lanes, device=y.device)
     length = 3 * hop_block
     # Block b reads ypad[b*hop_block : b*hop_block + 3*hop_block), where
     # ypad carries one leading block of zeros (kernel centre offset).
@@ -158,7 +159,7 @@ def oversampled_peak(x: torch.Tensor, up: int = 8, *, mask: "torch.Tensor | None
     its own sample range this way without fabricating a zero step at a
     shard boundary (zeroing the input there would ring the interpolator)."""
 
-    hmat = torch.as_tensor(true_peak_oversample_matrix(up), device=x.device)
+    hmat = device_constant(true_peak_oversample_matrix, up, device=x.device)
     n_rows = hmat.shape[0]
     shift = (n_rows - 1) // 2  # = half_len // up = 10
     xp = F.pad(x, (n_rows - 1 - shift, shift))

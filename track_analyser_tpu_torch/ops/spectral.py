@@ -39,8 +39,9 @@ def ltas(mag: torch.Tensor) -> torch.Tensor:
     return mag.mean(dim=-1)
 
 
-def spectral_centroid(mag: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
-    """Magnitude-weighted mean frequency per frame. Input (..., freq, time)."""
+def spectral_centroid(mag: torch.Tensor, freqs: "np.ndarray | torch.Tensor") -> torch.Tensor:
+    """Magnitude-weighted mean frequency per frame. Input (..., freq, time);
+    ``freqs`` as a float32 tensor on ``mag``'s device is used as it is."""
 
     f = torch.as_tensor(freqs, dtype=torch.float32, device=mag.device)[:, None]
     total = mag.sum(dim=-2, keepdim=True)
@@ -49,9 +50,10 @@ def spectral_centroid(mag: torch.Tensor, freqs: np.ndarray) -> torch.Tensor:
 
 
 def spectral_rolloff(
-    mag: torch.Tensor, freqs: np.ndarray, roll_percent: float = 0.85
+    mag: torch.Tensor, freqs: "np.ndarray | torch.Tensor", roll_percent: float = 0.85
 ) -> torch.Tensor:
-    """Frequency below which ``roll_percent`` of the energy sits, per frame."""
+    """Frequency below which ``roll_percent`` of the energy sits, per
+    frame; ``freqs`` as for ``spectral_centroid``."""
 
     f = torch.as_tensor(freqs, dtype=torch.float32, device=mag.device)[:, None]
     total = torch.cumsum(mag, dim=-2)

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
+
 __all__ = ["hann_window", "n_frames", "frame_signal", "stft", "magnitude", "fft_frequencies", "istft"]
 
 
@@ -85,7 +87,10 @@ def stft(
     window unless ``window`` (n_fft,) is given, centred frames unless
     ``center=False``."""
 
-    win = torch.as_tensor(_window(n_fft, window), dtype=y.dtype, device=y.device)
+    if window is None:
+        win = device_constant(hann_window, n_fft, device=y.device, dtype=y.dtype)
+    else:
+        win = torch.as_tensor(_window(n_fft, window), dtype=y.dtype, device=y.device)
     frames = frame_signal(y, n_fft, hop_length, center=center) * win
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return spec.transpose(-1, -2)

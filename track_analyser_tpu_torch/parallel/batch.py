@@ -9,6 +9,10 @@ axis).
 
 - ``analyse_track_fused`` stages one track and dispatches it as a batch
   of one.
+- On CUDA a dispatch replays a captured CUDA graph: the first dispatch of
+  each payload shape runs the batched graph eagerly (its result) and
+  captures it; later ones copy the payload into the capture's inputs and
+  replay it, one launch in place of ~800 (``_dispatch``).
 - ``analyse_library`` streams a library through a bounded pipeline:
   decode + quantise workers, upload workers (pinned host buffers, one
   side stream each a device), one dispatch worker per device of the
@@ -39,7 +43,7 @@ import contextlib
 import json
 import os
 import threading
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -54,7 +58,7 @@ from ..analysis import beats as beats_mod
 from ..analysis import loudness as loudness_mod
 from ..analysis import structure as structure_mod
 from ..config import DEFAULT_CONFIG, DEFAULT_SEED
-from ..device import check_nans, resolve_device
+from ..device import DEBUG_NANS, check_nans, resolve_device
 from ..features import FeatureAnalysis, FeatureSeries, LongTermAverageSpectrum
 from ..models import downbeat as downbeat_model
 from ..models import downbeat_net
@@ -971,11 +975,141 @@ def _upload(parts: "Sequence[np.ndarray]", n_valid: "Sequence[int]", dev: torch.
     return tuple(tensors[:-1]), tensors[-1], ready
 
 
+@dataclass(slots=True, eq=False)
+class _Captured:
+    """One captured batched graph: the tensors it reads (the payload parts,
+    then n_valid), the packed outputs it writes, and the kernel launches it
+    holds (``cuda_build.held_launches``), which each replay adds."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    outputs: tuple
+    launches: list
+
+
+class _DeviceGraphs:
+    """The captured graphs of one card, least recently used first, at most
+    ``limit``. They share one memory pool, so the card holds the largest
+    graph's intermediates once, not once a graph. That is safe because
+    their replays run one at a time in one order on the card: a replay,
+    with its copy-in before it and its readback after it, is enqueued under
+    ``lock``, after ``done``, the event recorded behind the last one.
+    Captures take ``_capture_lock`` besides (``_capture``)."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.entries: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self.lock = threading.Lock()
+        self.pool = None  # the pool's handle, from the first capture
+        self.done: "torch.cuda.Event | None" = None
+
+    def get(self, key: tuple) -> "Optional[_Captured]":
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key: tuple, entry: _Captured) -> None:
+        """Add ``entry``, evicting the least recently used beyond ``limit``.
+        An evicted graph's outputs return to the pool, so none of its
+        readbacks may be pending: a capture synchronises the card first."""
+
+        self.entries[key] = entry
+        while len(self.entries) > self.limit:
+            self.entries.popitem(last=False)
+
+
+# Graphs kept per card. A key is a payload shape of a transport at a sample
+# rate: a sweep of one bucket needs one, a library of CD tracks a few.
+_GRAPHS_PER_DEVICE = 8
+_graphs: "Dict[str, _DeviceGraphs]" = {}
+_graphs_lock = threading.Lock()
+# One capture at a time in the process, whatever its card: entering a
+# capture empties the caching allocator of every card, which must not
+# happen while another card is capturing.
+_capture_lock = threading.Lock()
+
+
+def _device_graphs(dev: torch.device) -> _DeviceGraphs:
+    with _graphs_lock:
+        return _graphs.setdefault(str(dev), _DeviceGraphs(_GRAPHS_PER_DEVICE))
+
+
+def clear_graphs() -> None:
+    """Drop every captured graph of the process, and with them their
+    memory pools; the next dispatch of each key captures it again. Call it
+    with no dispatch underway."""
+
+    with _graphs_lock:
+        _graphs.clear()
+
+
+def _graph_key(transport: str, parts: tuple, n_valid: torch.Tensor, *, sr: int) -> tuple:
+    """What a captured graph depends on that can change between calls: the
+    transport, the payload's shapes and dtypes (bucket and batch), the
+    sample rate, the downbeat net it runs (None without one) and whether the
+    fused STFT is switched on."""
+
+    shapes = tuple((tuple(t.shape), t.dtype) for t in parts + (n_valid,))
+    return (transport, shapes, sr, _bundled_net(n_valid.device), fused_stft.switched_on())
+
+
+def _readback(outs: tuple) -> tuple:
+    """Queue copies of ``outs`` into new pinned host buffers on the current
+    stream; returns the buffers."""
+
+    host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
+    for h, o in zip(host, outs):
+        h.copy_(o, non_blocking=True)
+    return host
+
+
+def _capture(transport: str, parts: tuple, n_valid: torch.Tensor, *, sr: int, pool) -> "tuple[tuple, _Captured]":
+    """Run the batched graph eagerly on the chunk, then capture it into
+    ``pool`` (None: a new pool) on a side stream; returns (the eager
+    outputs, the capture). The eager run picks the cuFFT plans and cuDNN
+    algorithms and fills the constant cache, so the capture meets nothing
+    it cannot record. Other threads go on pinning and copying meanwhile:
+    the capture's errors are this thread's alone. The capture itself holds
+    ``_capture_lock``, since ``torch.cuda.graph`` empties the caching
+    allocator of every card on entry. A capture that fails raises."""
+
+    stream = torch.cuda.current_stream(n_valid.device)
+    inputs = tuple(torch.empty_like(t) for t in parts + (n_valid,))
+    side = torch.cuda.Stream(device=n_valid.device)
+    side.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        outs = _core_graph(_decode_payload(transport, parts), n_valid, sr=sr)
+        with _capture_lock, cuda_build.held_launches() as launches, torch.cuda.graph(
+            graph, pool=pool, stream=side, capture_error_mode="thread_local"
+        ):
+            outputs = _core_graph(_decode_payload(transport, inputs[:-1]), inputs[-1], sr=sr)
+    stream.wait_stream(side)
+    # The payload was read on the side stream, and the outputs are read
+    # back on this one.
+    for t in parts + (n_valid,):
+        t.record_stream(side)
+    for t in outs:
+        t.record_stream(stream)
+    return outs, _Captured(graph, inputs, outputs, launches)
+
+
 def _dispatch(transport: str, staged: tuple, *, sr: int) -> tuple:
-    """Enqueue the batched graph on the uploaded payload and, on CUDA, the
+    """Run the batched graph on the uploaded payload and, on CUDA, queue the
     readback of its outputs into pinned host buffers right behind it.
     Returns (host outputs, (start, graph done, copied) CUDA events or
-    None); the host outputs are valid once ``copied`` has fired."""
+    None); the host outputs are valid once ``copied`` has fired.
+
+    On CUDA the graph is replayed: the first dispatch of a key
+    (``_graph_key``) on a card runs it eagerly (its outputs are the
+    result) and captures it (a ``graph_capture`` span); every later one
+    copies the payload into the capture's inputs on the device and replays
+    it (a ``graph_replay`` span), so ``start`` to ``graph done`` is the
+    copy-in and the replay on the card. With
+    ``TRACK_ANALYSER_TPU_DEBUG_NANS=1`` the graph runs eagerly, since the
+    sanitizer reads its outputs on the host. On the CPU it runs eagerly and
+    returns no events."""
 
     parts, n_valid, ready = staged
     if ready is None:
@@ -992,17 +1126,40 @@ def _dispatch(transport: str, staged: tuple, *, sr: int) -> tuple:
         torch.cuda.Event(enable_timing=True),
         torch.cuda.Event(),
     )
-    events[0].record(stream)
-    with torch.inference_mode():
-        outs = _core_graph(_decode_payload(transport, parts), n_valid, sr=sr)
-        events[1].record(stream)
-        # Copies queued here, in stream order after this chunk's graph and
-        # before the next chunk's, so a finisher waits for its own chunk
-        # only.
-        host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
-        for h, o in zip(host, outs):
-            h.copy_(o, non_blocking=True)
-    events[2].record(stream)
+    # Copies queued in stream order after this chunk's graph and before the
+    # next chunk's, so a finisher waits for its own chunk only.
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        if os.environ.get(DEBUG_NANS) == "1":
+            events[0].record(stream)
+            outs = _core_graph(_decode_payload(transport, parts), n_valid, sr=sr)
+            events[1].record(stream)
+            host = _readback(outs)
+            events[2].record(stream)
+            return host, events
+        key = _graph_key(transport, parts, n_valid, sr=sr)
+        card = _device_graphs(n_valid.device)
+        with card.lock:
+            if card.done is not None:
+                stream.wait_event(card.done)
+            entry = card.get(key)
+            events[0].record(stream)
+            if entry is None:
+                with span("graph_capture"):
+                    outs, entry = _capture(transport, parts, n_valid, sr=sr, pool=card.pool)
+                    if card.pool is None:
+                        card.pool = entry.graph.pool()
+                    card.put(key, entry)
+            else:
+                with span("graph_replay"):
+                    for static, t in zip(entry.inputs, parts + (n_valid,)):
+                        static.copy_(t, non_blocking=True)
+                    entry.graph.replay()
+                    outs = entry.outputs
+                cuda_build.add_launches(entry.launches)
+            events[1].record(stream)
+            host = _readback(outs)
+            events[2].record(stream)
+            card.done = events[2]
     return host, events
 
 
@@ -1060,8 +1217,10 @@ def analyse_track_fused(
       - "float32": the exact samples.
 
     ``device_batch`` is accepted for the JAX package's signature, where
-    it picks the sweep executable to share; the port compiles no
-    executable, so a single track always runs as a batch of one.
+    it picks the sweep executable to share. The port shares nothing
+    between a call and a sweep: a single track always runs as a batch of
+    one, whose CUDA graph is captured at the first call of its bucket and
+    replayed by every later one (``_dispatch``).
     """
 
     if int(device_batch) < 1:
@@ -1142,7 +1301,7 @@ def analyse_library(
                       queued behind it (enqueued, not waited for), and
                       holds at most ``max(upload_streams, 2) + 2`` chunks
                       between upload and finish;
-      finish pool  -> one pool for all workers: waits for the chunk's
+      finish pool  -> one thread for all workers: waits for the chunk's
                       readback event, then lane by lane unpack and host
                       finishers, manifest.
 
@@ -1173,9 +1332,12 @@ def analyse_library(
     propagates.
 
     ``prewarm``: build the CUDA kernels' libraries while the first tracks
-    decode (default: on for CUDA). There is no executable to compile: the
-    port runs eagerly. The downbeat net is placed on every device of the
-    mesh before the first dispatch either way.
+    decode (default: on for CUDA). The batched graph of each chunk shape
+    is captured as a CUDA graph at its first dispatch on a card, after an
+    eager run that gives that chunk's result, and replayed by the later
+    ones; a capture stays for later calls in the process. The downbeat net
+    is placed on every device of the mesh before the first dispatch either
+    way.
 
     ``prefetch_tracks``: decoded tracks held ahead of the dispatch
     (default ``max(2 * len(mesh) * device_batch, 4)``).
@@ -1266,10 +1428,6 @@ def analyse_library(
     n_done = 0
     total = len(todo)
     finish_lock = threading.Lock()
-    # Rendering is not thread-safe (pyplot mutates a global figure registry
-    # and font cache), so artefact writing serialises on its own lock;
-    # readback and assembly of other chunks still overlap.
-    render_lock = threading.Lock()
 
     def _record(src, entry: dict) -> None:
         nonlocal n_done
@@ -1294,7 +1452,10 @@ def analyse_library(
                         from ..rendering import outputs as outputs_module
 
                         name = Path(str(src)).stem if isinstance(src, (str, Path)) else f"track_{idx:05d}"
-                        with render_lock, _on(dev), span("render"):
+                        # Rendering is not thread-safe (pyplot mutates a global
+                        # figure registry and font cache): the one finisher
+                        # renders a track at a time.
+                        with _on(dev), span("render"):
                             outputs_module.render_all(
                                 result, Path(output_dir) / name, report_request=report_request, device=dev
                             )
@@ -1334,9 +1495,13 @@ def analyse_library(
         ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"analyse_library-worker{w}")
         for w in range(len(devices))
     ]
-    # One finisher per chunk that may await its readback, plus one, so a
-    # finisher is free the moment a chunk is dispatched.
-    finish_pool = ThreadPoolExecutor(max_workers=len(devices) * (stage_depth + 1) + 1)
+    # One finisher for every worker and card: the finishers run Python and
+    # small numpy calls under the GIL. On H100 machines two or four at once
+    # finished a one-card sweep of 30 s clips 1.3-1.9x slower than one, and
+    # a two-card sweep with one finisher a card ran at 0.5-0.6x one card's
+    # rate. A replayed graph's readback lands within milliseconds of its
+    # dispatch, so the one finisher seldom waits on a card.
+    finish_pool = ThreadPoolExecutor(max_workers=1)
     warm_pool = ThreadPoolExecutor(max_workers=1)
     warm = warm_pool.submit(_warm)
 

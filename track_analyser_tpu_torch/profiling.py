@@ -120,8 +120,11 @@ def stage_seconds() -> Dict[str, float]:
     "finish" (readback, unpack and host finishers; rendering too in the
     sweep), "readback_wait", "finish.beats", "finish.downbeats",
     "finish.structure", "finish.harmony", "finish.rest", "render",
-    "stems", "call"; and "graph" (the graph on the device between two
-    CUDA events; absent on the CPU)."""
+    "stems", "call"; "graph_capture" and "graph_replay" (inside
+    "dispatch" on a card: capturing a CUDA graph, and replaying one with
+    its copy-in and readback enqueued); and "graph" (the graph on the
+    device between two CUDA events, the copy-in and the replay once
+    captured; absent on the CPU)."""
 
     with _stage_lock:
         return dict(_STAGE_SECONDS)

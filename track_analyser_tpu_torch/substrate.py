@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import DEFAULT_CONFIG
+from .device import device_constant
 from .ops import fused_stft
 from .ops.chroma import chroma_from_power, chroma_stft_filterbank, cq_chroma_tribank
 from .ops.filters import gaussian_filter1d, gaussian_kernel, hpss
@@ -103,7 +104,7 @@ def _smooth_valid(curve: torch.Tensor, f_valid: torch.Tensor, sigma: float) -> t
 def _minmax_normalise(curve: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Min-max normalise each lane of (B, T) over its masked frames."""
 
-    big = torch.tensor(3.4e38, dtype=curve.dtype, device=curve.device)
+    big = torch.full((), 3.4e38, dtype=curve.dtype, device=curve.device)
     lo = torch.where(mask, curve, big).amin(dim=-1, keepdim=True)
     hi = torch.where(mask, curve, -big).amax(dim=-1, keepdim=True)
     span = hi - lo
@@ -184,6 +185,17 @@ def structure_curves(
     return novelty, _minmax_normalise(energy_novelty, fmask), perc_col, harm_col
 
 
+def _key_profiles() -> np.ndarray:
+    """(24, 12): the unit major profile rotated to each of the 12 tonics,
+    then the unit minor profile likewise."""
+
+    from .harmony import MAJOR_PROFILE, MINOR_PROFILE  # host constants
+
+    major = MAJOR_PROFILE / np.linalg.norm(MAJOR_PROFILE)
+    minor = MINOR_PROFILE / np.linalg.norm(MINOR_PROFILE)
+    return np.stack([np.roll(major, s) for s in range(12)] + [np.roll(minor, s) for s in range(12)])
+
+
 def _ms_magnitude(ms: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """|STFT| (B, 2, bins, frames) of the [mid, side] stack (B, 2, n).
 
@@ -241,7 +253,7 @@ def full_track_graph(
     ms_mag = _ms_magnitude(torch.stack([y, side], dim=1), n_fft, hop)
     mag = ms_mag[:, 0]  # (B, bins, T)
     power = mag * mag
-    mel_power = melspectrogram_from_power(power, mel_filterbank(sr, n_fft, cfg.n_mels))
+    mel_power = melspectrogram_from_power(power, device_constant(mel_filterbank, sr, n_fft, cfg.n_mels, device=dev))
 
     env = onset_strength_from_mel(mel_power, n_fft=n_fft, hop_length=hop)
     env = torch.where(fmask, env, zero)
@@ -264,13 +276,13 @@ def full_track_graph(
     out["harm_col"] = harm_col
 
     # ---- features: LTAS / centroid / rolloff ----------------------------
-    freqs = fft_frequencies(sr, n_fft)
+    freqs_t = device_constant(fft_frequencies, sr, n_fft, device=dev, dtype=torch.float32)
     out["ltas"] = _masked_mean(mag, fmask_bins, dim=-1)  # (B, bins)
-    out["centroid"] = torch.where(fmask, spectral_centroid(mag, freqs), zero)
-    out["rolloff"] = torch.where(fmask, spectral_rolloff(mag, freqs, cfg.rolloff_percent), zero)
+    out["centroid"] = torch.where(fmask, spectral_centroid(mag, freqs_t), zero)
+    out["rolloff"] = torch.where(fmask, spectral_rolloff(mag, freqs_t, cfg.rolloff_percent), zero)
 
     # ---- harmony: chroma projections + key scores -----------------------
-    chroma_st = chroma_from_power(power, chroma_stft_filterbank(sr, n_fft))
+    chroma_st = chroma_from_power(power, device_constant(chroma_stft_filterbank, sr, n_fft, device=dev))
     chroma_cq = cq_chroma_tribank(
         y,
         mag,
@@ -290,14 +302,7 @@ def full_track_graph(
     chroma_cq = torch.repeat_interleave(chroma_cq, cfg.cq_hop // hop, dim=-1)[..., :total_frames]
     out["chroma_cq"] = chroma_cq
 
-    from .harmony import MAJOR_PROFILE, MINOR_PROFILE  # host constants
-
-    major = MAJOR_PROFILE / np.linalg.norm(MAJOR_PROFILE)
-    minor = MINOR_PROFILE / np.linalg.norm(MINOR_PROFILE)
-    rot = np.stack(
-        [np.roll(major, s) for s in range(12)] + [np.roll(minor, s) for s in range(12)]
-    )  # (24, 12)
-    rot_t = torch.as_tensor(rot, dtype=torch.float32, device=dev)
+    rot_t = device_constant(_key_profiles, device=dev, dtype=torch.float32)  # (24, 12)
     scores = torch.zeros((y.shape[0], 24), device=dev)
     for chroma in (chroma_cq, chroma_st):
         cmean = _masked_mean(chroma, fmask_bins, dim=-1)  # (B, 12)
@@ -307,7 +312,7 @@ def full_track_graph(
     out["key_scores"] = scores
 
     # ---- spectral balance on the shared 2048 family ---------------------
-    bal_w = torch.as_tensor(balance_band_weights(sr, n_fft), device=dev)
+    bal_w = device_constant(balance_band_weights, sr, n_fft, device=dev)
     bal_col = torch.where(fmask_bins, mag, zero).sum(dim=-1)  # (B, bins)
     bal_sums = (bal_w @ bal_col[..., None])[..., 0]  # (B, 3)
     out["balance_total"] = bal_sums.sum(dim=-1)
@@ -353,7 +358,6 @@ def full_track_graph(
 
     mid_e = torch.where(fmask_bins, power, zero)
     side_e = torch.where(fmask_bins, ms_mag[:, 1] * ms_mag[:, 1], zero)
-    freqs_t = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
     nyq = sr / 2.0
     frames_ok = torch.clamp_min(f_valid, 1)
     widths = []
