@@ -4,12 +4,15 @@
 
 For each seed, in one process: the corpus, one traced-stretch's worth of
 the cell's traffic through the program (a cycle of the corpus, or one
-sweep call), the plain reference, and, for the control seeds, the
-reference again in float32 with TF32 (the precision below the
-configuration's float32 with TF32 off) in the program's place. Prints one
-JSON line a seed with the compared numbers of the program (the lower
-readings) and of the control (the upper readings), each with the field
-where it lies, and the worst gap of every compared field.
+sweep call), the plain references (the analysis and those the
+configuration names), and, for the control seeds, each reference again
+with ``control=True`` (the analysis in float32 with TF32, the precision
+below the configuration's float32 with TF32 off) in the program's place.
+Prints one JSON line a seed with every compared number of the program
+(the lower readings) and of the control (the upper readings), each with
+the leaf where it lies, the same numbers for each reference alone, and
+the worst gap of every compared leaf of each reference, all from one
+comparison.
 Not part of a benchmark run.
 """
 
@@ -23,8 +26,7 @@ import tempfile
 import time
 from pathlib import Path
 
-from . import correct
-from .drive import Driver, Outcome
+from .drive import Driver
 from .gen import corpus
 from .harness import _reference, bucket_of, compare
 from .spec import Spec
@@ -32,20 +34,15 @@ from .spec import Spec
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _per_field(outcomes, refs: dict, tracks) -> dict:
-    """{field: [number, worst gap, file]} over ``outcomes``."""
+def _sides(side: str, numbers) -> dict:
+    """One side's numbers: over every reference, by reference, and by leaf."""
 
-    out: dict = {}
-    for o in outcomes:
-        t = tracks[o.track]
-        for where, (number, gap) in correct.field_gaps(o.result, refs[o.track]).items():
-            if where not in out or gap > out[where][1]:
-                out[where] = [number, gap, Path(t.path).name]
-    return out
+    return {side: numbers.worst, f"{side}_by_reference": numbers.by_reference, f"{side}_fields": numbers.fields}
 
 
 def readings(spec: Spec, cell_name: str, seed: int, control: bool, device: str = "cuda") -> dict:
     cell = spec.cell(cell_name)
+    references = spec.references(cell)
     work = Path(tempfile.mkdtemp(prefix=f"h100_bench_cal_{cell.name}_"))
     try:
         t0 = time.perf_counter()
@@ -54,16 +51,13 @@ def readings(spec: Spec, cell_name: str, seed: int, control: bool, device: str =
         driver.warm(bucket_of)
         served = [o for o in driver.stretch() if o.error is None]
         t_ref = time.perf_counter()
-        refs = _reference(tracks, [o.track for o in served], device, tf32=False)
+        refs = _reference(tracks, [o.track for o in served], device, tf32=False, references=references)
+        program = compare(served, refs, tracks, references)
         line = {"cell": cell.name, "seed": seed, "served": len(served),
-                "reference_s": time.perf_counter() - t_ref,
-                "program": {k: list(v) for k, v in compare(served, refs, tracks).worst.items()},
-                "program_fields": _per_field(served, refs, tracks)}
+                "reference_s": time.perf_counter() - t_ref, **_sides("program", program)}
         if control:
-            ctl = _reference(tracks, sorted(refs), device, tf32=True)
-            as_served = [Outcome(o.track, ctl[o.track]) for o in served]
-            line["control"] = {k: list(v) for k, v in compare(as_served, refs, tracks).worst.items()}
-            line["control_fields"] = _per_field(as_served, refs, tracks)
+            ctl = _reference(tracks, sorted(refs), device, tf32=True, references=references)
+            line.update(_sides("control", compare(served, refs, tracks, references, answers=ctl)))
         line["seconds"] = time.perf_counter() - t0
         return line
     finally:

@@ -11,13 +11,19 @@ Kinds:
 
 The configuration's ``call`` and the traffic's ``call`` are keyword
 arguments of the entry point (``output_dir: true`` becomes a fresh
-directory of the run). The window starts calls while it is open and
-closes when the last one returns, so every call in it is whole.
+directory of the run). Each call runs in a fresh directory of its own
+under the run's ``calls/`` (its outcomes' ``run_dir``), so what it writes
+relative to the working directory lands there, is judged as that call's
+own after the window, and goes with the run; the warm-up's are removed
+when it ends. The window starts calls while it is open and closes when
+the last one returns, so every call in it is whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import shutil
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -32,12 +38,14 @@ from .gen.corpus import Track
 @dataclass
 class Outcome:
     """One served track: its corpus index, the result (decoded audio
-    dropped) or the error, and, for a single call, its latency."""
+    dropped) or the error, for a single call its latency, and the
+    directory its call ran in."""
 
     track: int
     result: object = None
     error: Optional[str] = None
     latency_s: Optional[float] = None
+    run_dir: Optional[Path] = None
 
 
 @dataclass
@@ -64,6 +72,9 @@ class Driver:
         self.kwargs = {**config.get("call", {}), **traffic.get("call", {}), "device": device}
         if self.kwargs.get("output_dir") is True:
             self.kwargs["output_dir"] = str(work_dir / "out")
+        self.calls_dir = Path(work_dir) / "calls"
+        self.calls_dir.mkdir()
+        self._made = 0
         self._rng = np.random.default_rng([int(seed), 1])
         self._order = self._cycles()
 
@@ -74,44 +85,62 @@ class Driver:
     def _sweep_sources(self) -> List[int]:
         return list(itertools.islice(self._order, self.rotations * len(self.tracks)))
 
+    @contextlib.contextmanager
+    def _own_dir(self) -> Iterator[Path]:
+        """A fresh directory under ``calls_dir``, the working directory
+        while one call runs; the one before is restored afterwards."""
+
+        run_dir = self.calls_dir / str(self._made)
+        self._made += 1
+        run_dir.mkdir()
+        with contextlib.chdir(run_dir):
+            yield run_dir
+
     # -- one call of each kind -------------------------------------------
     def _single(self, index: int) -> Outcome:
         from track_analyser_tpu_torch.pipeline import analyse_track
 
-        t0 = time.perf_counter()
-        try:
-            result = analyse_track(self.tracks[index].path, **self.kwargs)
-        except Exception:  # a failed call is counted, not fatal to the run
-            return Outcome(index, error=traceback.format_exc(limit=3), latency_s=time.perf_counter() - t0)
-        return Outcome(index, _strip(result), latency_s=time.perf_counter() - t0)
+        with self._own_dir() as run_dir:
+            t0 = time.perf_counter()
+            try:
+                result = analyse_track(self.tracks[index].path, **self.kwargs)
+            except Exception:  # a failed call is counted, not fatal to the run
+                return Outcome(index, error=traceback.format_exc(limit=3), latency_s=time.perf_counter() - t0,
+                               run_dir=run_dir)
+            return Outcome(index, _strip(result), latency_s=time.perf_counter() - t0, run_dir=run_dir)
 
     def _sweep(self, indices: List[int]) -> List[Outcome]:
         from track_analyser_tpu_torch.parallel.batch import TrackFailure, analyse_library
 
-        try:
-            results = analyse_library([self.tracks[i].path for i in indices], **self.kwargs)
-        except Exception:  # the whole call failed: every source of it failed
-            err = traceback.format_exc(limit=3)
-            return [Outcome(i, error=err) for i in indices]
+        with self._own_dir() as run_dir:
+            try:
+                results = analyse_library([self.tracks[i].path for i in indices], **self.kwargs)
+            except Exception:  # the whole call failed: every source of it failed
+                err = traceback.format_exc(limit=3)
+                return [Outcome(i, error=err, run_dir=run_dir) for i in indices]
         out = []
         for i, r in zip(indices, results):
             if isinstance(r, TrackFailure) or not hasattr(r, "beat"):
-                out.append(Outcome(i, error=str(getattr(r, "error", r))))
+                out.append(Outcome(i, error=str(getattr(r, "error", r)), run_dir=run_dir))
             else:
-                out.append(Outcome(i, _strip(r)))
+                out.append(Outcome(i, _strip(r), run_dir=run_dir))
         return out
 
     # -- warm-up, window, traced stretch ----------------------------------
     def warm(self, bucket_of: Callable[[Track], int]) -> List[Outcome]:
         """One call per distinct bucket of the corpus (a one-file sweep per
-        bucket for ``sweep``)."""
+        bucket for ``sweep``); what they wrote is removed."""
 
         firsts = {}
         for t in self.tracks:
             firsts.setdefault(bucket_of(t), t.index)
         if self.kind == "single":
-            return [self._single(i) for i in firsts.values()]
-        return self._sweep(list(firsts.values()))
+            out = [self._single(i) for i in firsts.values()]
+        else:
+            out = self._sweep(list(firsts.values()))
+        for run_dir in {o.run_dir for o in out}:
+            shutil.rmtree(run_dir)
+        return out
 
     def window(self, seconds: float) -> Window:
         w = Window()

@@ -15,7 +15,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 from . import correct, roofline
 from .drive import Driver, Outcome, Window
@@ -38,6 +38,7 @@ class Context:
     stages: Dict[str, float] = field(default_factory=dict)
     trace: Optional[Trace] = None
     stretch_outcomes: List[Outcome] = field(default_factory=list)
+    memory_peak_bytes: int = 0
 
     @property
     def done(self) -> List[Outcome]:
@@ -60,20 +61,39 @@ def bucket_of(track: corpus.Track) -> int:
     return bucket_length(roofline.analysis_samples(track.frames, track.sample_rate))
 
 
-def _reference(tracks: List[corpus.Track], indices, device: str, tf32: bool) -> dict:
-    """The plain reference's answer for each corpus index in ``indices``;
-    ``tf32`` computes it in the precision control's float32 with TF32."""
+def _reference(tracks: List[corpus.Track], indices, device: str, tf32: bool,
+               references: Sequence[correct.Reference] = (correct.ANALYSIS,)) -> dict:
+    """{corpus index: {reference: answer}} for each index in ``indices``
+    (once a file); ``tf32`` computes each in the precision control's
+    float32 with TF32."""
 
-    from .reference import analyse
+    return {i: {r.name: r.analyse(tracks[i].path, device=device, control=tf32) for r in references}
+            for i in sorted(set(indices))}
 
-    return {i: analyse(tracks[i].path, device=device, control=tf32) for i in sorted(set(indices))}
 
+def compare(outcomes: List[Outcome], refs: dict, tracks: List[corpus.Track],
+            references: Sequence[correct.Reference] = (correct.ANALYSIS,),
+            answers: Optional[dict] = None) -> correct.Numbers:
+    """Every reference's leaves of each outcome against its answer in
+    ``refs``. The leaves are read from what the outcome served, its result
+    and the files its own call wrote, or, where ``answers`` ({corpus index:
+    {reference: answer}}) is given, are those answers: the precision
+    control put in the program's place."""
 
-def compare(outcomes: List[Outcome], refs: dict, tracks: List[corpus.Track]) -> correct.Numbers:
-    numbers = correct.Numbers()
+    numbers = correct.Numbers(references)
     for k, o in enumerate(outcomes):
         t = tracks[o.track]
-        numbers.add(o.result, refs[o.track], f"outcome {k} ({Path(t.path).name})")
+        label = f"outcome {k} ({Path(t.path).name})"
+        for r in references:
+            if answers is not None:
+                got = answers[o.track][r.name]
+            else:
+                try:
+                    got = r.served(o.result, source_path=t.path, run_dir=o.run_dir)
+                except Exception as e:  # what the call produced cannot be read: not correct
+                    numbers.unread(label, r, repr(e))
+                    continue
+            numbers.add(got, refs[o.track][r.name], label, r)
     return numbers
 
 
@@ -116,6 +136,7 @@ def run_cell(
             if on_card:
                 torch.zeros(1, device=device)
             log(f"torch, the program and the CUDA context: {time.perf_counter() - t0:.2f} s into the run")
+            references = spec.references(cell)
             tracks = pending.result()
         driver = Driver(cell.traffic, cell.config, tracks, seed, device, work)
         warm = driver.warm(bucket_of)
@@ -132,8 +153,9 @@ def run_cell(
         log(f"warm-up done: set-up {setup_s:.2f} s")
 
         window = driver.window(seconds)
-        ctx = Context(cell.name, setup_s, window, tracks, stages=program_batch.stage_seconds())
         memory_peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
+        ctx = Context(cell.name, setup_s, window, tracks, stages=program_batch.stage_seconds(),
+                      memory_peak_bytes=memory_peak)
 
         breakdown = None
         if trace:
@@ -158,8 +180,8 @@ def run_cell(
         if on_card:
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        refs = _reference(tracks, [o.track for o in served], device, tf32=False)
-        numbers = compare(served, refs, tracks)
+        refs = _reference(tracks, [o.track for o in served], device, tf32=False, references=references)
+        numbers = compare(served, refs, tracks, references)
         ok, checks = numbers.verdict(cell.config["limits"])
         log(f"reference: {len(refs)} files, {numbers.compared} results compared in "
             f"{time.perf_counter() - t_ref:.2f} s")

@@ -4,18 +4,23 @@ A cell (``workloads`` entry) names a configuration, whose ``file`` holds
 its corpus, format and limits, and a traffic mix, read from
 ``h100_bench/traffic/<traffic>.json``. Every metric, end-to-end or
 per-layer, is read by ``h100_bench/metrics/<name>.py``, a module with one
-function ``read(ctx)`` that returns a number or None. A later cell or
-metric is therefore added by adding files and entries, never by editing
-one that is here.
+function ``read(ctx)`` that returns a number or None. A configuration
+may name plain references of its own (``"references"``), each read from
+``h100_bench/reference/<name>.py`` (``correct`` says what such a module
+gives). A later cell, metric or reference is therefore added by adding
+files and entries, never by editing one that is here.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
+
+from . import correct
 
 BENCH_DIR = Path(__file__).resolve().parent
 
@@ -80,6 +85,39 @@ class Spec:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module.read
+
+    def references(self, cell: Cell) -> List[correct.Reference]:
+        """The analysis reference, then each that the cell's configuration
+        names, loaded; raises where one is missing or does not load, or a
+        number they compare by has no limit in the configuration."""
+
+        refs = [correct.ANALYSIS] + [self.reference(name) for name in cell.config.get("references", [])]
+        correct.require_limits(correct.numbers_of(refs), cell.config["limits"])
+        return refs
+
+    def reference(self, name: str) -> correct.Reference:
+        """The module ``reference/<name>.py``, loaded as a submodule of the
+        reference package, so that its relative imports find the
+        package's own modules; ``sys.modules`` is left as it was."""
+
+        path = self.bench_dir / "reference" / f"{name}.py"
+        if not name.isidentifier() or not path.is_file():
+            raise FileNotFoundError(f"the configuration names reference {name!r}: there is no {path}")
+        qualified = f"{__package__}.reference.{name}"
+        spec = importlib.util.spec_from_file_location(qualified, path)
+        module = importlib.util.module_from_spec(spec)
+        held = sys.modules.get(qualified)
+        sys.modules[qualified] = module  # while it runs: dataclasses look their module up
+        try:
+            spec.loader.exec_module(module)
+        except Exception as e:
+            raise ImportError(f"reference {name!r} ({path}) does not load: {e!r}") from e
+        finally:
+            if held is None:
+                sys.modules.pop(qualified, None)
+            else:
+                sys.modules[qualified] = held
+        return correct.Reference.of_module(name, module)
 
 
 def read_metrics(spec: Spec, metrics: List[Metric], ctx) -> Dict[str, dict]:

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import pytest
 
-from h100_bench.drive import Driver, Outcome
+from h100_bench.drive import Driver
 from h100_bench.gen import corpus
 from h100_bench.harness import _reference, bucket_of, compare
 
@@ -41,7 +41,7 @@ def test_control_fails_and_the_program_passes(cuda, config, seed):
         ok, _ = compare(served, refs, tracks).verdict(conf["limits"])
         assert ok
         control = _reference(tracks, range(len(tracks)), cuda, tf32=True)
-        ok, table = compare([Outcome(i, control[i]) for i in control], refs, tracks).verdict(conf["limits"])
+        ok, table = compare(served, refs, tracks, answers=control).verdict(conf["limits"])
         assert not ok, table
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -55,7 +55,8 @@ def test_busy_union_and_gaps_by_hand():
 def test_readers_find_nothing_where_there_is_nothing():
     ctx = _ctx()
     for name in ("device_idle_pct.single", "device_idle_pct.sweep", "median31_roofline.sweep",
-                 "graph_ms.single", "dispatch_ms.sweep", "track_ms", "track_ms_p90", "audio_s_per_s"):
+                 "graph_ms.single", "dispatch_ms.sweep", "track_ms", "track_ms_p90", "audio_s_per_s.sweep",
+                 "device_memory_peak_mib"):
         assert reader(name)(ctx) is None, name
 
 
@@ -65,9 +66,11 @@ def test_host_clock_metrics():
     assert reader("track_ms_p90")(single) == pytest.approx(380.0)
     sweep = _ctx(outcomes=[Outcome(0, object()), Outcome(1, object()), Outcome(2, error="x")], seconds=2.0,
                  stages={"dispatch": 0.3, "graph": 0.05})
-    assert reader("audio_s_per_s")(sweep) == pytest.approx(181.0)
+    assert reader("audio_s_per_s.sweep")(sweep) == pytest.approx(181.0)
     assert reader("dispatch_ms.sweep")(sweep) == pytest.approx(150.0)
     assert reader("graph_ms.sweep")(sweep) == pytest.approx(25.0)
+    sweep.memory_peak_bytes = 3 * 2**20
+    assert reader("device_memory_peak_mib")(sweep) == pytest.approx(3.0)
 
 
 def test_readers_on_a_recorded_trace():
