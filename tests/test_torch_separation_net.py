@@ -9,6 +9,7 @@ with the JAX functions on seeded numpy signals of peak <= 1. Tolerance:
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import jax
@@ -228,3 +229,42 @@ def test_run_from_checkpoint_cuda_raises_without_cuda() -> None:
         pytest.skip("CUDA is available here; the error path needs a host without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tnet.run_from_checkpoint(CKPT_DIR / "separation_v5.npz", _mixture(SR, seed=1), SR)
+
+
+def test_the_net_is_built_once_per_checkpoint(monkeypatch, tmp_path) -> None:
+    """Two calls read and build the net once; an override path, and the
+    same file rewritten, are read again."""
+
+    monkeypatch.delenv("TRACK_ANALYSER_TPU_SEPARATION_CKPT", raising=False)
+    tnet._model_on.cache_clear()
+    built = []
+    real = tnet.params_from_jax
+
+    def counted(params):
+        built.append(params["blk0_tconv"].shape)
+        return real(params)
+
+    monkeypatch.setattr(tnet, "params_from_jax", counted)
+    y = _mixture(SR // 2, seed=31)
+    first = separation.separate(y, SR, device="cpu")
+    second = separation.separate(y, SR, device="cpu")
+    assert built == [(5, 144)]
+    for stem in tnet.STEMS:
+        np.testing.assert_array_equal(first[stem], second[stem])
+
+    override = tmp_path / "separation_v4.npz"
+    override.write_bytes((CKPT_DIR / "separation_v4.npz").read_bytes())
+    monkeypatch.setenv("TRACK_ANALYSER_TPU_SEPARATION_CKPT", str(override))
+    assert separation.model_name() == "bandsplit-masknet-v4"
+    v4 = separation.separate(y, SR, device="cpu")
+    assert built == [(5, 144), (5, 96)]
+    ref = jnet.run_from_checkpoint(CKPT_DIR / "separation_v4.npz", y, SR)
+    for stem in tnet.STEMS:
+        np.testing.assert_allclose(v4[stem], ref[stem], atol=ATOL, err_msg=stem)
+
+    stat = override.stat()
+    tnet.save_checkpoint(tnet.init_params(d_model=8, n_blocks=1, generator=torch.Generator().manual_seed(3)),
+                         override)
+    os.utime(override, ns=(stat.st_atime_ns, stat.st_mtime_ns + 1_000_000))
+    separation.separate(y, SR, device="cpu")
+    assert built == [(5, 144), (5, 96), (5, 8)]

@@ -109,11 +109,12 @@ def test_blend_weights() -> None:
     assert tstems._BLEND_NEURAL_WEIGHT == jstems._BLEND_NEURAL_WEIGHT
     y = _mixture(SR, seed=9)
     dsp = tstems.separate_stems_arrays(y, SR, device="cpu")
-    neural = {name: np.full(y.shape, 0.5, dtype=np.float32) for name in NAMES}
+    neural = torch.full((len(NAMES),) + y.shape, 0.5)  # the net's stems, stacked in NAMES order
     blended = tstems._blend_with_dsp(neural, y, SR, device="cpu")
-    for name, w in tstems._BLEND_NEURAL_WEIGHT.items():
-        assert blended[name].dtype == np.float32
-        np.testing.assert_allclose(blended[name], w * 0.5 + (1.0 - w) * dsp[name], atol=1e-6)
+    assert blended.dtype == torch.float32 and blended.shape == (len(NAMES),) + y.shape
+    for i, name in enumerate(NAMES):
+        w = tstems._BLEND_NEURAL_WEIGHT[name]
+        np.testing.assert_allclose(blended[i].numpy(), w * 0.5 + (1.0 - w) * dsp[name], atol=1e-6)
 
 
 @pytest.fixture(scope="module")

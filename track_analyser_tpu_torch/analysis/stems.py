@@ -30,6 +30,7 @@ from ..device import check_nans, resolve_device
 from ..io.codecs import AudioDecodeError, write_wav
 from ..ops.filters import hpss
 from ..ops.stft import fft_frequencies, istft, stft
+from ..profiling import span
 
 __all__ = ["StemBundle", "separate_stems", "separate_stems_arrays"]
 
@@ -88,12 +89,12 @@ def _dsp_separate_body(y: torch.Tensor, *, sr: int, n_samples: int, f_valid=None
     m_bass = mask_harm * low
     m_vocals = mask_harm * mid_band * w_voc
     m_other = torch.clamp(1.0 - (m_drums + m_bass + m_vocals), 0.0, 1.0)
+    del mag, harm, perc, total, mask_harm
 
-    stems = [
-        istft(spec * mask, _N_FFT, _HOP, n_samples, f_valid=f_valid)
-        for mask in (m_drums, m_bass, m_other, m_vocals)
-    ]
-    return torch.stack(stems, dim=-2)
+    stems = torch.empty(y.shape[:-1] + (len(_NAMES), n_samples), dtype=torch.float32, device=dev)
+    for i, mask in enumerate((m_drums, m_bass, m_other, m_vocals)):
+        stems[..., i, :] = istft(spec * mask, _N_FFT, _HOP, n_samples, f_valid=f_valid)
+    return stems
 
 
 # Per-stem neural weight for the neural/DSP blend: the JAX package's
@@ -102,23 +103,54 @@ def _dsp_separate_body(y: torch.Tensor, *, sr: int, n_samples: int, f_valid=None
 _BLEND_NEURAL_WEIGHT = {"drums": 0.25, "bass": 0.5, "other": 0.25, "vocals": 0.75}
 
 
+def _settle(t: torch.Tensor) -> torch.Tensor:
+    """``t`` once its device has computed it, so that a span around the
+    work that made it times that work and not its enqueue."""
+
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
 def _blend_with_dsp(
-    neural: Dict[str, np.ndarray],
+    neural: torch.Tensor,
     samples: np.ndarray,
     sample_rate: int,
     *,
     device: "str | torch.device" = "cuda",
-) -> Dict[str, np.ndarray]:
-    """Combine neural and DSP stem estimates with per-stem weights."""
+) -> torch.Tensor:
+    """Combine the net's (4, n) or (C, 4, n) stems on ``device`` with the
+    DSP separator's by per-stem weights, in place, in float32 as the JAX
+    package blends on the host: ``w * net + (1 - w) * dsp``."""
 
     if all(w >= 1.0 for w in _BLEND_NEURAL_WEIGHT.values()):
         return neural
-    dsp = separate_stems_arrays(samples, sample_rate, device=device)
-    out: Dict[str, np.ndarray] = {}
-    for name, est in neural.items():
-        w = _BLEND_NEURAL_WEIGHT.get(name, 1.0)
-        out[name] = est if w >= 1.0 else (w * est + (1.0 - w) * dsp[name]).astype(np.float32)
-    return out
+    with torch.inference_mode():
+        with span("stems.dsp"):
+            dsp = _settle(_dsp_stems(samples, sample_rate, resolve_device(device)))
+        with span("stems.blend"):
+            for i, name in enumerate(_NAMES):
+                w = _BLEND_NEURAL_WEIGHT.get(name, 1.0)
+                if w < 1.0:
+                    neural[..., i, :].mul_(w).add_(dsp[..., i, :] * (1.0 - w))
+            del dsp
+            return _settle(neural)
+
+
+def _dsp_stems(samples: np.ndarray, sample_rate: int, dev: torch.device) -> torch.Tensor:
+    """The DSP separator's (4, n) or (C, 4, n) stems of ``samples``, on
+    ``dev``, the signal padded to its bucket length with ``f_valid``
+    masking."""
+
+    from ..substrate import pad_to_bucket
+
+    arr = np.asarray(samples, dtype=np.float32)
+    n = int(arr.shape[-1])
+    padded, f_valid = pad_to_bucket(arr, hop=_HOP)
+    with torch.inference_mode():
+        y = torch.from_numpy(padded).to(dev)
+        out = _dsp_separate_body(y, sr=sample_rate, n_samples=padded.shape[-1], f_valid=f_valid)
+        return check_nans("analysis.stems._dsp_separate_body", out)[..., :n]
 
 
 def separate_stems_arrays(
@@ -131,19 +163,27 @@ def separate_stems_arrays(
     multi-channel (C, n) -> stems of shape (C, n), separated per channel.
     The signal is padded to its bucket length with ``f_valid`` masking."""
 
-    from ..substrate import pad_to_bucket
-
-    dev = resolve_device(device)
-    arr = np.asarray(samples, dtype=np.float32)
-    n = int(arr.shape[-1])
-    padded, f_valid = pad_to_bucket(arr, hop=_HOP)
-    with torch.inference_mode():
-        y = torch.from_numpy(padded).to(dev)
-        out = _dsp_separate_body(y, sr=sample_rate, n_samples=padded.shape[-1], f_valid=f_valid)
-        out = check_nans("analysis.stems._dsp_separate_body", out)[..., :n].cpu().numpy()
-    if arr.ndim == 2:
+    out = _dsp_stems(samples, sample_rate, resolve_device(device)).cpu().numpy()
+    if out.ndim == 3:
         return {s: out[:, i] for i, s in enumerate(_NAMES)}  # out is (C, 4, n)
     return dict(zip(_NAMES, out))
+
+
+def _pcm16_frames(stems: torch.Tensor) -> np.ndarray:
+    """``write_wav``'s PCM_16 of (4, n) or (C, 4, n) stems, made on their
+    device (round(x * 32767) in float64, clipped) and read back once, as
+    int16 (4, n) or frame-major (4, n, C) on the host."""
+
+    with torch.inference_mode():
+        stereo = stems.dim() == 3
+        shape = (len(_NAMES), stems.shape[-1]) + ((stems.shape[0],) if stereo else ())
+        frames = torch.empty(shape, dtype=torch.int16, device=stems.device)
+        for i in range(len(_NAMES)):
+            q = torch.round(stems[..., i, :].double() * 32767.0).clamp_(-32768, 32767)
+            frames[i] = q.T if stereo else q
+        host = torch.empty(shape, dtype=torch.int16, pin_memory=stems.is_cuda)
+        host.copy_(frames)
+    return host.numpy()
 
 
 def separate_stems(
@@ -161,6 +201,12 @@ def separate_stems(
     cannot be written. Any other failure propagates (see the module
     docstring): a device or kernel error is never hidden behind the DSP
     separator or a None.
+
+    Its layers are spans (``profiling.span``), inside the caller's
+    "stems": "stems.load" (the second decode, channels kept), "stems.net"
+    (the mask net's upload, forward pass and inverses),
+    "stems.dsp" (the DSP separator), "stems.blend" and "stems.write"
+    (quantising on the device, one readback, and writing the four WAVs).
     """
 
     if audio_path is None:
@@ -175,7 +221,8 @@ def separate_stems(
     try:
         out_dir = Path(output_dir) if output_dir is not None else Path.cwd() / "stems"
         out_dir.mkdir(parents=True, exist_ok=True)
-        samples, sample_rate, _meta = load_audio(audio_path, mono=False)
+        with span("stems.load"):
+            samples, sample_rate, _meta = load_audio(audio_path, mono=False)
     except (AudioDecodeError, OSError):
         return None
     samples = np.asarray(samples, dtype=np.float32)
@@ -184,20 +231,26 @@ def separate_stems(
 
     # Neural path first when a trained checkpoint exists, blended with the
     # DSP estimates (see _blend_with_dsp); the DSP separator alone otherwise.
+    # The stems stay on the device until they are quantised.
     if separation_model.available():
-        stems = separation_model.separate(samples, sample_rate, seed=seed, device=dev)
+        with span("stems.net"):
+            stems = separation_model.separate(samples, sample_rate, seed=seed, device=dev, on_device=True)
         model_name = separation_model.model_name()
         stems = _blend_with_dsp(stems, samples, sample_rate, device=dev)
     else:
         model_name = "hpss-dsp-v1"
-        stems = separate_stems_arrays(samples, sample_rate, device=dev)
+        with span("stems.dsp"):
+            stems = _settle(_dsp_stems(samples, sample_rate, dev))
 
     stem_paths: Dict[str, Path] = {}
     try:
-        for name, data in stems.items():
-            path = out_dir / f"{Path(audio_path).stem}_{name}.wav"
-            write_wav(path, data, sample_rate, subtype="PCM_16")
-            stem_paths[name] = path
+        with span("stems.write"):
+            pcm = _pcm16_frames(stems)
+            del stems
+            for i, name in enumerate(_NAMES):
+                path = out_dir / f"{Path(audio_path).stem}_{name}.wav"
+                write_wav(path, pcm[i], sample_rate, subtype="PCM_16")
+                stem_paths[name] = path
     except OSError:
         return None
     return StemBundle(stems=stem_paths, model_name=model_name)

@@ -306,9 +306,12 @@ def write_wav(
     subtype: str = "PCM_16",
 ) -> None:
     """Write ``data`` (``(frames,)`` or ``(frames, channels)`` or
-    ``(channels, frames)`` float in [-1, 1]) to a WAV file."""
+    ``(channels, frames)`` float in [-1, 1]) to a WAV file. For
+    ``PCM_16``, int16 ``data`` is taken as samples already quantised."""
 
-    arr = np.asarray(data, dtype=np.float64)
+    arr = np.asarray(data)
+    if not (subtype == "PCM_16" and arr.dtype == np.int16):
+        arr = arr.astype(np.float64)
     if arr.ndim == 1:
         arr = arr[:, None]
     elif arr.shape[0] <= 8 and arr.shape[0] < arr.shape[1]:
@@ -316,28 +319,24 @@ def write_wav(
     frames, channels = arr.shape
 
     if subtype == "PCM_16":
-        payload = (
-            np.clip(np.round(arr * 32767.0), -32768, 32767).astype("<i2").tobytes()
-        )
+        ints = arr if arr.dtype == np.int16 else np.clip(np.round(arr * 32767.0), -32768, 32767)
+        payload = np.ascontiguousarray(ints, dtype="<i2")
         bits, tag = 16, _WAVE_FORMAT_PCM
     elif subtype == "PCM_24":
         ints = np.clip(np.round(arr * 8388607.0), -8388608, 8388607).astype(np.int32)
-        b = np.empty((frames * channels, 3), dtype=np.uint8)
+        payload = np.empty((frames * channels, 3), dtype=np.uint8)
         flat = ints.reshape(-1)
-        b[:, 0] = flat & 0xFF
-        b[:, 1] = (flat >> 8) & 0xFF
-        b[:, 2] = (flat >> 16) & 0xFF
-        payload = b.tobytes()
+        payload[:, 0] = flat & 0xFF
+        payload[:, 1] = (flat >> 8) & 0xFF
+        payload[:, 2] = (flat >> 16) & 0xFF
         bits, tag = 24, _WAVE_FORMAT_PCM
     elif subtype == "PCM_32":
-        payload = (
-            np.clip(np.round(arr * 2147483647.0), -2147483648, 2147483647)
-            .astype("<i4")
-            .tobytes()
+        payload = np.ascontiguousarray(
+            np.clip(np.round(arr * 2147483647.0), -2147483648, 2147483647), dtype="<i4"
         )
         bits, tag = 32, _WAVE_FORMAT_PCM
     elif subtype == "FLOAT":
-        payload = arr.astype("<f4").tobytes()
+        payload = np.ascontiguousarray(arr, dtype="<f4")
         bits, tag = 32, _WAVE_FORMAT_IEEE_FLOAT
     else:
         raise ValueError(f"Unsupported WAV subtype: {subtype}")
@@ -347,8 +346,10 @@ def write_wav(
     fmt = struct.pack(
         "<HHIIHH", tag, channels, sample_rate, byte_rate, block_align, bits
     )
-    data_chunk = b"data" + struct.pack("<I", len(payload)) + payload
     fmt_chunk = b"fmt " + struct.pack("<I", len(fmt)) + fmt
-    riff_body = b"WAVE" + fmt_chunk + data_chunk
-    out = b"RIFF" + struct.pack("<I", len(riff_body)) + riff_body
-    Path(path).write_bytes(out)
+    riff_size = 4 + len(fmt_chunk) + 8 + payload.nbytes
+    header = b"RIFF" + struct.pack("<I", riff_size) + b"WAVE" + fmt_chunk
+    # The samples go to the file from the array's own buffer, not a copy.
+    with open(path, "wb") as f:
+        f.write(header + b"data" + struct.pack("<I", payload.nbytes))
+        f.write(memoryview(payload).cast("B"))

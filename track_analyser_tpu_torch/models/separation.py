@@ -59,8 +59,11 @@ def separate(
     *,
     seed: int = 0,
     device: "str | torch.device" = "cuda",
-) -> Optional[Dict[str, np.ndarray]]:
-    """Run the neural separator on ``device`` if a checkpoint is available."""
+    on_device: bool = False,
+) -> "Optional[Dict[str, np.ndarray] | torch.Tensor]":
+    """Run the neural separator on ``device`` if a checkpoint is available;
+    with ``on_device`` its stems stay there, one stacked tensor
+    (``separation_net.run_from_checkpoint``)."""
 
     ckpt = _checkpoint_path()
     if ckpt is None:
@@ -68,5 +71,5 @@ def separate(
     from . import separation_net
 
     return separation_net.run_from_checkpoint(
-        ckpt, samples, sample_rate, seed=seed, device=device
+        ckpt, samples, sample_rate, seed=seed, device=device, on_device=on_device
     )

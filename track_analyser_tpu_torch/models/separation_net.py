@@ -34,6 +34,7 @@ from torch import nn
 
 from ..device import check_nans, resolve_device
 from ..ops.stft import istft, stft
+from ..profiling import count_seconds
 
 __all__ = [
     "STEMS",
@@ -285,12 +286,12 @@ def _separate_body(model: BandSplitMaskNet, y: torch.Tensor, n_samples: int, f_v
 
     spec = stft(y, N_FFT, HOP)
     h = model.features(spec, f_valid)
-    stems = []
-    for stem in STEMS:
+    stems = torch.empty(y.shape[:-1] + (len(STEMS), n_samples), dtype=torch.float32, device=y.device)
+    for i, stem in enumerate(STEMS):
         masked = spec * model.decode_mask(h, stem)
-        stems.append(istft(masked, N_FFT, HOP, n_samples, f_valid=f_valid))
+        stems[..., i, :] = istft(masked, N_FFT, HOP, n_samples, f_valid=f_valid)
         del masked
-    return torch.stack(stems, dim=-2)
+    return stems
 
 
 def separate_signal(
@@ -318,6 +319,15 @@ def separate_signal_multi(
         return check_nans("models.separation_net._separate_body", _separate_body(model, y, n_samples, f_valid))
 
 
+@lru_cache(maxsize=4)
+def _model_on(path: str, mtime_ns: int, device: str) -> BandSplitMaskNet:
+    """The net of the checkpoint at the resolved ``path`` on ``device``,
+    read and built once per path, modification time and device, so a
+    checkpoint rewritten in place is read again."""
+
+    return params_from_jax(load_checkpoint(path)).to(device)
+
+
 def run_from_checkpoint(
     path: "str | Path",
     samples: np.ndarray,
@@ -325,25 +335,50 @@ def run_from_checkpoint(
     *,
     seed: int = 0,
     device: "str | torch.device" = "cuda",
-) -> Dict[str, np.ndarray]:
+    on_device: bool = False,
+) -> "Dict[str, np.ndarray] | torch.Tensor":
     """Stems for (n,) mono or (C, n) multi-channel input, on ``device``;
     values keep the input's channel layout ((n,) or (C, n) per stem).
+    With ``on_device`` the stems stay where they were made, as one
+    (4, n) or (C, 4, n) tensor on ``device`` in ``STEMS`` order.
 
     The signal is padded to its bucket length and ``f_valid`` masks the
     padding, so the first n output samples are what an exact-shape run
-    gives."""
+    gives. The net is read and built once per checkpoint (its resolved
+    path and modification time) and device. On a card the upload, the
+    forward pass and the inverses are timed between two CUDA events, read
+    once the readback (or, with ``on_device``, the end event) has waited
+    for them, and counted as
+    ``profiling.stage_seconds()["stems.net_device"]``."""
 
     del sample_rate, seed  # the model is sample-rate agnostic at 44.1k training
     from ..substrate import pad_to_bucket
 
     dev = resolve_device(device)
-    model = params_from_jax(load_checkpoint(path)).to(dev)
+    resolved = Path(path).resolve()
+    model = _model_on(str(resolved), resolved.stat().st_mtime_ns, str(dev))
     arr = np.asarray(samples, dtype=np.float32)
     n = int(arr.shape[-1])
     padded, f_valid = pad_to_bucket(arr, hop=HOP)
+    events = None
+    if dev.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record()
     y = torch.from_numpy(padded).to(dev)
     separate = separate_signal_multi if y.dim() == 2 else separate_signal
-    out = separate(model, y, n_samples=padded.shape[-1], f_valid=f_valid)[..., :n].cpu().numpy()
+    stems = separate(model, y, n_samples=padded.shape[-1], f_valid=f_valid)[..., :n]
+    if events is not None:
+        events[1].record()
+    if on_device:
+        if events is not None:
+            events[1].synchronize()
+        out = stems
+    else:
+        out = stems.cpu().numpy()
+    if events is not None:
+        count_seconds("stems.net_device", events[0].elapsed_time(events[1]) / 1e3)
+    if on_device:
+        return out
     if y.dim() == 2:
         return {s: out[:, i] for i, s in enumerate(STEMS)}  # out is (C, 4, n)
     return dict(zip(STEMS, out))

@@ -120,11 +120,17 @@ def stage_seconds() -> Dict[str, float]:
     "finish" (readback, unpack and host finishers; rendering too in the
     sweep), "readback_wait", "finish.beats", "finish.downbeats",
     "finish.structure", "finish.harmony", "finish.rest", "render",
-    "stems", "call"; "graph_capture" and "graph_replay" (inside
+    "stems", "call"; inside "stems" (``analyse_track(use_stems=True)``),
+    "stems.load" (the source decoded again, channels kept), "stems.net"
+    (the mask net: upload, forward pass, inverses), "stems.dsp" (the DSP
+    separator), "stems.blend" (on the device) and "stems.write"
+    (quantising on the device, one readback, writing the four WAVs); "graph_capture" and "graph_replay" (inside
     "dispatch" on a card: capturing a CUDA graph, and replaying one with
-    its copy-in and readback enqueued); and "graph" (the graph on the
-    device between two CUDA events, the copy-in and the replay once
-    captured; absent on the CPU)."""
+    its copy-in and readback enqueued); "graph" (the graph on the device
+    between two CUDA events, the copy-in and the replay once captured;
+    absent on the CPU); and "stems.net_device" (the mask net's upload,
+    forward pass and inverses on the device between two CUDA events;
+    absent on the CPU)."""
 
     with _stage_lock:
         return dict(_STAGE_SECONDS)
