@@ -2,8 +2,11 @@
 raises where it cannot, and it is held to the port's numpy codecs and
 plain quantisers and to the JAX package's binding of the same C++.
 
-- WAV decode equals the numpy codec bit for bit for PCM_16, PCM_24,
-  PCM_32 and FLOAT; garbage is declined (None).
+- WAV decode equals the numpy codec bit for bit for PCM_U8, PCM_16,
+  PCM_24, PCM_32, FLOAT and DOUBLE at 1, 2, 3 and 6 channels, in an
+  extensible fmt chunk and with a trailing partial frame, and its mono
+  downmix equals ``mean(axis=0)`` bit for bit, on one thread and on four;
+  garbage is declined (None).
 - FLAC decode equals the numpy decoder bit for bit.
 - Every ``ta_quantise_*`` writes the numpy plain version's payload bit
   for bit (codes, scales, bases, the carry) on stereo and mono input,
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import stat
+import struct
 
 import numpy as np
 import pytest
@@ -79,17 +83,115 @@ def _tone(seconds: float, channels: int) -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
-@pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("subtype", ["PCM_16", "PCM_24", "PCM_32", "FLOAT"])
-def test_wav_decode_equals_the_numpy_codec(tmp_path, lib, subtype, channels) -> None:
+_WAV_CODES = {"PCM_U8": (1, 8), "PCM_16": (1, 16), "PCM_24": (1, 24), "PCM_32": (1, 32), "FLOAT": (3, 32), "DOUBLE": (3, 64)}
+
+
+def _wav_bytes(x: np.ndarray, subtype: str, extensible: bool = False, trailing: bytes = b"") -> bytes:
+    """A RIFF/WAVE file of the (channels, frames) float32 ``x`` written by
+    hand: every subtype the native decoder converts (``write_wav`` writes
+    neither PCM_U8 nor DOUBLE), a WAVE_FORMAT_EXTENSIBLE fmt chunk on
+    request, and ``trailing`` bytes after the last whole frame."""
+
+    tag, bits = _WAV_CODES[subtype]
+    frames = np.ascontiguousarray(x.T)
+    if subtype == "PCM_U8":
+        body = np.clip(np.round(frames * 128.0 + 128.0), 0, 255).astype(np.uint8).tobytes()
+    elif subtype == "PCM_24":
+        ints = np.clip(np.round(frames * 2.0**23), -(2**23), 2**23 - 1).astype("<i4")
+        body = ints.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    elif tag == 1:
+        scale = 2.0 ** (bits - 1)
+        body = np.clip(np.round(frames * scale), -scale, scale - 1).astype(f"<i{bits // 8}").tobytes()
+    else:
+        body = frames.astype(f"<f{bits // 8}").tobytes()
+    body += trailing
+    channels, block = x.shape[0], x.shape[0] * bits // 8
+    fields = (channels, SR, SR * block, block, bits)
+    if extensible:  # cbSize 22, valid bits, channel mask, SubFormat GUID led by the real tag
+        guid = tag.to_bytes(4, "little") + bytes.fromhex("000000001000800000aa00389b71")
+        fmt = struct.pack("<HHIIHHHHI", 0xFFFE, *fields, 22, bits, 0) + guid
+    else:
+        fmt = struct.pack("<HHIIHH", tag, *fields)
+    chunks = b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(body)) + body
+    if len(body) & 1:
+        chunks += b"\0"
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" + chunks
+
+
+def _wav_cases():
+    """(subtype, channels, layout): the plain file of every subtype at 1,
+    2, 3 and 6 channels, and at 2 and 6 channels an extensible fmt chunk
+    and a data chunk ending in a partial frame."""
+
+    cases = [(st, ch, "plain") for st in _WAV_CODES for ch in (1, 2, 3, 6)]
+    cases += [(st, ch, layout) for layout in ("extensible", "partial_frame") for st in _WAV_CODES for ch in (2, 6)]
+    return cases
+
+
+@pytest.mark.parametrize(
+    "subtype, channels, layout", _wav_cases(),
+    ids=[f"{st}-{ch}" + ("" if layout == "plain" else f"-{layout}") for st, ch, layout in _wav_cases()],
+)
+def test_wav_decode_equals_the_numpy_codec(tmp_path, lib, subtype, channels, layout) -> None:
+    """The planes, rate and metadata equal the numpy codec's, and the mono
+    the pass writes beside them (asked for at the file's rate) equals
+    ``mean(axis=0)`` of the codec's planes, bit for bit."""
+
     path = tmp_path / f"tone_{subtype}.wav"
-    write_wav(path, _tone(0.25, channels), SR, subtype=subtype)
+    if layout == "plain" and subtype in ("PCM_16", "PCM_24", "PCM_32", "FLOAT") and channels <= 2:
+        write_wav(path, _tone(0.25, channels), SR, subtype=subtype)
+    else:
+        width = _WAV_CODES[subtype][1] // 8
+        trailing = bytes(range(1, width * (channels - 1) + 1)) if layout == "partial_frame" else b""
+        path.write_bytes(_wav_bytes(_tone(0.25, channels), subtype, layout == "extensible", trailing))
     ref = decode_wav(path)
     got = binding.decode(str(path))
     assert got is not None
     np.testing.assert_array_equal(got[0], ref[0])
     assert got[0].dtype == np.float32 and got[0].flags.c_contiguous
     assert got[1:] == ref[1:]
+    assert got[0].shape == (channels, int(0.25 * SR))
+    planes, sr, meta, mono = binding.decode_with_mono(str(path), SR)
+    assert np.array_equal(planes, ref[0]) and (sr, meta) == ref[1:]
+    assert mono.dtype == np.float32 and mono.shape == (planes.shape[1],)
+    assert np.array_equal(mono, ref[0].mean(axis=0))
+    assert binding.decode_with_mono(str(path), SR // 2)[3] is None  # a resample comes first
+
+
+@pytest.mark.parametrize("frames", [(1 << 21) - 1, (1 << 21) + 8195], ids=["one_thread", "four_threads"])
+def test_the_threaded_pass_equals_the_one_thread_pass(tmp_path, lib, frames) -> None:
+    """Either side of the 2**21-frame threshold the pass writes the numpy
+    codec's planes and ``mean(axis=0)``: the threads split the frames and
+    change no sample."""
+
+    rng = np.random.default_rng(frames)
+    x = rng.uniform(-1.0, 1.0, size=(2, frames)).astype(np.float32)
+    path = tmp_path / "long.wav"
+    path.write_bytes(_wav_bytes(x, "PCM_16"))
+    ref = decode_wav(path)
+    planes, sr, meta, mono = binding.decode_with_mono(str(path), SR)
+    assert planes.shape == (2, frames) and (sr, meta) == ref[1:]
+    assert np.array_equal(planes, ref[0])
+    assert np.array_equal(mono, ref[0].mean(axis=0))
+
+
+def test_a_data_chunk_shorter_than_asked_is_an_error(tmp_path, lib) -> None:
+    """``ta_wav_read`` returns non-zero where the file holds fewer frames
+    than it was asked for (a file cut between the header and the pass);
+    ``decode`` then declines and the numpy codec takes the file."""
+
+    path = tmp_path / "short.wav"
+    write_wav(path, _tone(0.1, 2), SR)
+    frames, channels, sr, subtype, offset = (ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(),
+                                             ctypes.c_int(), ctypes.c_longlong())
+    assert lib.ta_wav_info(str(path).encode(), ctypes.byref(frames), ctypes.byref(channels), ctypes.byref(sr),
+                           ctypes.byref(subtype), ctypes.byref(offset)) == 0
+    assert (frames.value, channels.value, sr.value, subtype.value) == (int(0.1 * SR), 2, SR, 1)
+    more = frames.value + 1
+    planes = np.empty((2, more), dtype=np.float32)
+    rc = lib.ta_wav_read(str(path).encode(), offset.value, more, 2, subtype.value,
+                         planes.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), None)
+    assert rc != 0
 
 
 def test_garbage_is_declined(tmp_path, lib) -> None:
@@ -321,5 +423,6 @@ def test_native_calls_release_the_gil(lib) -> None:
     threads quantise in parallel."""
 
     assert type(lib) is ctypes.CDLL
+    assert {"ta_wav_info", "ta_wav_read"} <= set(binding._SIGNATURES)  # the one-pass WAV decode
     for name in binding._SIGNATURES:
         assert not type(getattr(lib, name))._flags_ & ctypes._FUNCFLAG_PYTHONAPI, name

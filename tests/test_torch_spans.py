@@ -148,6 +148,22 @@ def test_the_single_path_call_is_covered_by_its_children(clips) -> None:
     assert covered >= 0.9 * (call.end_ns - call.start_ns), (covered, call.end_ns - call.start_ns)
 
 
+def test_the_native_wav_pass_nests_in_decode(clips, sweep_spans) -> None:
+    """One "decode.wav" span inside each "decode": on the single path, and
+    on the sweep's pool threads, tagged with the decode's track."""
+
+    _result, records, _prof = _profiled(lambda: analyse_track(clips[2], device="cpu"))
+    for spans in (records, sweep_spans):
+        by_id = {r.span_id: r for r in spans}
+        passes = [r for r in spans if r.name == "decode.wav"]
+        decodes = [r for r in spans if r.name == "decode"]
+        assert sorted(r.parent_id for r in passes) == sorted(r.span_id for r in decodes)
+        for r in passes:
+            parent = by_id[r.parent_id]
+            assert r.track == parent.track and r.thread == parent.thread
+            assert parent.start_ns <= r.start_ns and r.end_ns <= parent.end_ns
+
+
 def test_the_profiler_flag_is_visible_on_a_pool_thread() -> None:
     with ThreadPoolExecutor(max_workers=1) as pool:
         assert pool.submit(profiling.recording).result() is False

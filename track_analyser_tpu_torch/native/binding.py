@@ -6,9 +6,12 @@ The library builds at first use (``native/build.py``) and loads with
 sweep's decode and staging workers quantise in parallel with each other
 and with the upload and finish threads. The port needs the library; a
 host without a C++ compiler raises on the first call. ``decode`` and
-``decode_flac`` return None where the library declines a file; the
-quantisers write payloads bit for bit those of the numpy plain versions
-in ``parallel/batch.py`` (their float64 stereo sums add in another order).
+``decode_flac`` return None where the library declines a file. ``decode``
+reads a WAV's header first, allocates the channel-major planes with
+numpy, and fills them in one native pass; ``decode_with_mono`` writes the
+mono downmix in the same pass. The quantisers write payloads bit for bit those of the numpy plain
+versions in ``parallel/batch.py`` (their float64 stereo sums add in
+another order).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..profiling import span
 from . import build
 
 __all__ = [
@@ -26,6 +30,7 @@ __all__ = [
     "available",
     "has_transport",
     "decode",
+    "decode_with_mono",
     "decode_flac",
     "quantise_i8",
     "quantise_i16",
@@ -38,22 +43,28 @@ __all__ = [
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I64 = ctypes.c_longlong
-_DECODE_ARGS = [
+_INTP = ctypes.POINTER(ctypes.c_int)
+_FLAC_ARGS = [
     ctypes.c_char_p,
     ctypes.POINTER(_F32P),
     ctypes.POINTER(ctypes.c_longlong),  # frames
-    ctypes.POINTER(ctypes.c_int),  # channels
-    ctypes.POINTER(ctypes.c_int),  # sample rate
-    ctypes.POINTER(ctypes.c_int),  # subtype code (WAV) / bits per sample (FLAC)
+    _INTP,  # channels
+    _INTP,  # sample rate
+    _INTP,  # bits per sample
 ]
+# path, frames, channels, sample rate, subtype code, data chunk offset
+_WAV_INFO_ARGS = [ctypes.c_char_p, ctypes.POINTER(_I64), _INTP, _INTP, _INTP, ctypes.POINTER(_I64)]
+# path, data chunk offset, frames, channels, subtype code, planes, mono (or NULL)
+_WAV_READ_ARGS = [ctypes.c_char_p, _I64, _I64, ctypes.c_int, ctypes.c_int, _F32P, _F32P]
 _SUBBYTE_ARGS = [
     _F32P, _I64, _I64, _I64, _I64, ctypes.c_float,
     ctypes.POINTER(ctypes.c_uint8), _F32P, _F32P, ctypes.POINTER(ctypes.c_double), _F32P,
 ]
 # symbol -> (restype, argtypes), transport.cpp / decoder.cpp / flac.cpp
 _SIGNATURES = {
-    "ta_decode_wav": (ctypes.c_int, _DECODE_ARGS),
-    "ta_decode_flac": (ctypes.c_int, _DECODE_ARGS),
+    "ta_wav_info": (ctypes.c_int, _WAV_INFO_ARGS),
+    "ta_wav_read": (ctypes.c_int, _WAV_READ_ARGS),
+    "ta_decode_flac": (ctypes.c_int, _FLAC_ARGS),
     "ta_free": (None, [_F32P]),
     "ta_quantise_i8": (None, [_F32P, _I64, _I64, _I64, _I64, ctypes.POINTER(ctypes.c_int8), _F32P]),
     "ta_quantise_i16": (None, [_F32P, _I64, _I64, ctypes.POINTER(ctypes.c_int16)]),
@@ -116,16 +127,62 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def _decode(symbol: str, path: str):
-    """(interleaved samples (frames, channels) float32, sample rate, the
-    fifth output) or None when the library declines ``path``."""
+def _meta(data: np.ndarray, sr: int, file_type: str, subtype: str) -> Dict[str, object]:
+    return {
+        "channels": int(data.shape[0]),
+        "duration": data.shape[1] / float(sr) if sr else 0.0,
+        "file_type": file_type,
+        "subtype": subtype,
+    }
+
+
+def decode(path: str) -> Optional[Tuple[np.ndarray, int, Dict[str, object]]]:
+    """Decode a RIFF/WAVE file (PCM 8/16/24/32, float32/64, extensible) to
+    (channel-major float32 (channels, frames), sample rate, metadata);
+    None where the library declines the file. The header is read first;
+    one native pass then writes the planes into an array allocated here."""
+
+    out = decode_with_mono(path, None)
+    return None if out is None else out[:3]
+
+
+def decode_with_mono(
+    path: str, mono_rate: Optional[int]
+) -> Optional[Tuple[np.ndarray, int, Dict[str, object], Optional[np.ndarray]]]:
+    """``decode`` and a fourth item: where the file's rate equals
+    ``mono_rate``, the mono downmix (frames,) float32 written in the same
+    pass as the planes, bit for bit ``planes.mean(axis=0)``; else None (a
+    resample comes first, and the downmix after it)."""
+
+    lib = load()
+    encoded = str(path).encode()
+    frames, channels, sr, subtype, offset = (
+        ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    )
+    rc = lib.ta_wav_info(encoded, ctypes.byref(frames), ctypes.byref(channels), ctypes.byref(sr),
+                         ctypes.byref(subtype), ctypes.byref(offset))
+    if rc != 0:
+        return None
+    with span("decode.wav"):
+        planes = np.empty((channels.value, frames.value), dtype=np.float32)
+        mono = np.empty(frames.value, dtype=np.float32) if sr.value == mono_rate else None
+        rc = lib.ta_wav_read(encoded, offset.value, frames.value, channels.value, subtype.value,
+                             _ptr(planes, ctypes.c_float), None if mono is None else _ptr(mono, ctypes.c_float))
+    if rc != 0:
+        return None
+    return planes, sr.value, _meta(planes, sr.value, "WAV", _WAV_SUBTYPES.get(subtype.value, "UNKNOWN")), mono
+
+
+def decode_flac(path: str) -> Optional[Tuple[np.ndarray, int, Dict[str, object]]]:
+    """Decode a FLAC file to channel-major float32, bit for bit
+    ``io/flac.decode_flac``; None where the library declines the file."""
 
     lib = load()
     buf = _F32P()
-    frames, channels, sr, extra = ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    rc = getattr(lib, symbol)(
+    frames, channels, sr, bps = ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.ta_decode_flac(
         str(path).encode(), ctypes.byref(buf), ctypes.byref(frames), ctypes.byref(channels),
-        ctypes.byref(sr), ctypes.byref(extra),
+        ctypes.byref(sr), ctypes.byref(bps),
     )
     if rc != 0:
         return None
@@ -138,38 +195,7 @@ def _decode(symbol: str, path: str):
             data = np.ctypeslib.as_array(buf, shape=(frames.value, channels.value)).T.copy()
     finally:
         lib.ta_free(buf)
-    return data, sr.value, extra.value
-
-
-def _meta(data: np.ndarray, sr: int, file_type: str, subtype: str) -> Dict[str, object]:
-    return {
-        "channels": int(data.shape[0]),
-        "duration": data.shape[1] / float(sr) if sr else 0.0,
-        "file_type": file_type,
-        "subtype": subtype,
-    }
-
-
-def decode(path: str) -> Optional[Tuple[np.ndarray, int, Dict[str, object]]]:
-    """Decode a RIFF/WAVE file (PCM 8/16/24/32, float32/64, extensible) to
-    channel-major float32; None where the library declines the file."""
-
-    out = _decode("ta_decode_wav", path)
-    if out is None:
-        return None
-    data, sr, subtype = out
-    return data, sr, _meta(data, sr, "WAV", _WAV_SUBTYPES.get(subtype, "UNKNOWN"))
-
-
-def decode_flac(path: str) -> Optional[Tuple[np.ndarray, int, Dict[str, object]]]:
-    """Decode a FLAC file to channel-major float32, bit for bit
-    ``io/flac.decode_flac``; None where the library declines the file."""
-
-    out = _decode("ta_decode_flac", path)
-    if out is None:
-        return None
-    data, sr, bps = out
-    return data, sr, _meta(data, sr, "FLAC", f"PCM_{bps}")
+    return data, sr.value, _meta(data, sr.value, "FLAC", f"PCM_{bps.value}")
 
 
 def _checked(channels: np.ndarray, n_bucket: int, block: int = 1, group: int = 1) -> np.ndarray:

@@ -45,13 +45,14 @@ SRC = Path(__file__).resolve().parent / "src"
 NATIVE_SOURCES = ("decoder.cpp", "transport.cpp", "flac.cpp")
 FFMPEG_SOURCE = "ffmpeg.cpp"
 FFMPEG_LIBS = ("avformat", "avcodec", "avutil", "swresample")
-# The JAX package's flags, exactly. -ffp-contract=off keeps the ms6/ms5
-# error-feedback chain a multiply then an add, bit for bit the numpy
-# quantiser's float32 law; -fno-math-errno and -fno-trapping-math let
-# nearbyintf vectorise without relaxing any arithmetic.
+# The JAX package's flags, and -pthread for the WAV pass's threads.
+# -ffp-contract=off keeps the ms6/ms5 error-feedback chain a multiply then
+# an add, bit for bit the numpy quantiser's float32 law; -fno-math-errno
+# and -fno-trapping-math let nearbyintf vectorise without relaxing any
+# arithmetic.
 FLAGS = (
     "-O3", "-march=native", "-ffp-contract=off", "-fno-math-errno", "-fno-trapping-math",
-    "-shared", "-fPIC", "-std=c++17",
+    "-shared", "-fPIC", "-std=c++17", "-pthread",
 )
 
 

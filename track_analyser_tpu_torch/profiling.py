@@ -113,7 +113,9 @@ def reset_stage_seconds() -> None:
 def stage_seconds() -> Dict[str, float]:
     """Seconds per span name since the last reset, summed over calls,
     tracks and threads (so the sweep's stages overlap): "decode"
-    (``coerce_audio``), "resample" (inside it), "quantise" (host staging),
+    (``coerce_audio``), "decode.wav" (the native one-pass WAV decode,
+    inside "decode" or "stems.load"), "resample" (inside "decode"),
+    "quantise" (host staging),
     "host_stereo" (inside it), "queue_wait" (a decoded track waiting for
     its chunk's upload, sweep only), "upload" (host time to stage and
     enqueue the copies), "dispatch" (host time to enqueue a graph),

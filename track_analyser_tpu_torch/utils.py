@@ -16,6 +16,7 @@ import numpy as np
 
 from .config import DEFAULT_SEED, DEFAULT_SR
 from .io.codecs import decode_file
+from .native import binding
 from .ops.resample import resample_poly_host
 from .profiling import span
 
@@ -63,12 +64,13 @@ def _resample(samples: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def _unpack_source(
-    source, mono: bool
+    source, mono: bool, target_sr: int
 ) -> tuple[np.ndarray, Optional[np.ndarray], Optional[int], Optional[str]]:
     """Normalise any accepted source into (mono, stereo|None, sr|None, path).
 
     ``sr=None`` means "already at the caller's nominal rate" (raw arrays
-    carry no rate of their own).
+    carry no rate of their own). A WAV at ``target_sr`` gets its mono from
+    the native decode's own pass, bit for bit ``data.mean(axis=0)``.
     """
 
     if isinstance(source, AudioInput):
@@ -86,8 +88,14 @@ def _unpack_source(
 
     if isinstance(source, (str, Path)):
         path = str(source)
-        data, sr, _meta = decode_file(path)  # channel-major (channels, frames)
-        return data.mean(axis=0), data, sr, path
+        # the native WAV pass first, as in decode_file's ladder, for its mono
+        native = binding.decode_with_mono(path, target_sr)
+        if native is None:
+            data, sr, _meta = decode_file(path)  # channel-major (channels, frames)
+            downmix = None
+        else:
+            data, sr, _meta, downmix = native
+        return (data.mean(axis=0) if downmix is None else downmix), data, sr, path
 
     if isinstance(source, np.ndarray) or (isinstance(source, tuple) and len(source) == 2):
         if isinstance(source, tuple):
@@ -116,7 +124,7 @@ def coerce_audio(
     existing :class:`AudioInput`.
     """
 
-    mono_samples, stereo, sr, path = _unpack_source(source, mono)
+    mono_samples, stereo, sr, path = _unpack_source(source, mono, target_sr)
     if sr is not None and sr != target_sr:
         with span("resample"):
             if stereo is not None:
